@@ -1,0 +1,439 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (megahit_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printing its own lines:
+
+1. the card (nvidia-smi name and power limit) and the torch/CUDA/nvcc
+   versions;
+2. build the CUDA kernels (one nvcc per source, in parallel) and the
+   host C++ helpers from this checkout;
+3. a bacterial-isolate read set: Illumina-like paired FASTQ from
+   scripts/make_realistic.py (2 Mbp genome, 30x, seed 1; cached in
+   chip_smoke_data/);
+4. kernel parity on the card, each kernel against its plain PyTorch
+   version, exact equality: at the main path's shapes (the isolate's
+   pool at k1=22), at k1 in {32, 42, 56}, and (kernel 2) at an n that is
+   not a multiple of 32768 with sentinel rows and one run spanning many
+   blocks; with each kernel's time, byte bound and library yardstick;
+   and the count's chunked branch against its single shot on the card;
+5. the make_test_data fixtures with --k-list 21 on cuda and on cpu:
+   the two final.contigs.fa must be byte-identical;
+6. the main path: the CLI on the isolate with --k-list 21 on cuda, with
+   every kernel launch counter set to 0 just before and read just
+   after (each must be > 0), per-stage wall times, peak device memory,
+   the device's busy time and idle share (torch.profiler, device
+   activity only), and contigs checked against the genome (total within
+   10%, N50 above 10 kbp);
+7. the isolate again with --device cpu: its final.contigs.fa must be
+   byte-identical to the cuda run's.
+
+It then prints the card line, one JSON line with every kernel's numbers,
+and as its last line {"ok": true, "device": {...}}. Any failed phase
+exits non-zero without that line. Without a GPU it exits non-zero at
+once.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+DATA = os.path.join(HERE, "chip_smoke_data")
+GENOME_BP = 2_000_000
+COVERAGE = 30
+# H100 SXM memory rate (NVIDIA data sheet), bytes/s
+HBM_BYTES_PER_S = 3.35e12
+# batch of the chunked count check (the isolate's pool is 4 batches)
+CHUNK = 1 << 24
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def cuda_ms(torch, fn, iters: int = 10, warm: int = 2) -> float:
+    """Mean device milliseconds of fn() over `iters` runs (CUDA events
+    around the whole batch, after `warm` warm-up runs)."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def phase_card(torch) -> str:
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip()
+    card = card.splitlines()[0]
+    from megahit_tpu_torch.core import kernels
+
+    nvcc = subprocess.run([kernels._nvcc(), "--version"], check=True,
+                          capture_output=True, text=True).stdout
+    rel = re.search(r"release ([0-9.]+)", nvcc)
+    log(f"[1] card: {card}")
+    log(f"[1] torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"nvcc {rel.group(1) if rel else '?'}, "
+        f"python {sys.version.split()[0]}, host cores usable "
+        f"{len(os.sched_getaffinity(0))} of {os.cpu_count()}")
+    return card
+
+
+def phase_build() -> dict:
+    from megahit_tpu_torch import native
+    from megahit_tpu_torch.core import kernels
+
+    t0 = time.monotonic()
+    secs = kernels.build_kernels(verbose=True)
+    t_cuda = time.monotonic() - t0
+    log(f"[2] nvcc builds (parallel): "
+        + ", ".join(f"{k} {v:.1f}s" for k, v in secs.items())
+        + f"; wall {t_cuda:.1f}s")
+    t0 = time.monotonic()
+    status = native.native_status()
+    log(f"[2] host C++ helpers {status}: {time.monotonic() - t0:.1f}s")
+    if not all(status.values()):
+        fail(f"host C++ helpers did not build: {status}")
+    return secs
+
+
+def phase_data() -> dict:
+    os.makedirs(DATA, exist_ok=True)
+    d = os.path.join(DATA, f"isolate_{GENOME_BP}_{COVERAGE}x_seed1")
+    r1 = os.path.join(d, "reads_1.fq.gz")
+    if not os.path.exists(r1):
+        t0 = time.monotonic()
+        subprocess.run(
+            [sys.executable, os.path.join(HERE, "scripts",
+                                          "make_realistic.py"),
+             d, "--genome-bp", str(GENOME_BP), "--coverage",
+             str(COVERAGE), "--seed", "1"], check=True)
+        log(f"[3] generated reads in {time.monotonic() - t0:.1f}s")
+    log(f"[3] isolate: {GENOME_BP} bp genome, {COVERAGE}x, {d}")
+    return {"dir": d, "r1": r1, "r2": os.path.join(d, "reads_2.fq.gz"),
+            "genome": os.path.join(d, "genome.fa")}
+
+
+def _parity_k1(torch, words_np, k1: int) -> int:
+    """kernel 1 vs plain at k1 on the card -> max |difference|."""
+    from megahit_tpu_torch.core import kernels
+
+    packed = torch.from_numpy(words_np.view("int32")).cuda()
+    got = kernels.canonical_all_kmers(packed, k1)
+    want = kernels.canonical_all_kmers_plain(packed, k1)
+    torch.cuda.synchronize()
+    if got.shape != want.shape:
+        fail(f"canonical_all_kmers k1={k1}: shape {tuple(got.shape)} "
+             f"!= {tuple(want.shape)}")
+    return int((got.long() - want.long()).abs().max())
+
+
+def _parity_k2(torch, cols, n_inv: int) -> int:
+    from megahit_tpu_torch.core import kernels
+
+    h1, c1 = kernels.count_sorted_runs(cols, n_inv)
+    h0, c0 = kernels.count_sorted_runs_plain(cols, n_inv)
+    torch.cuda.synchronize()
+    return max(int((h1.long() - h0.long()).abs().max()),
+               int((c1.long() - c0.long()).abs().max()))
+
+
+def phase_kernels(torch, data) -> list[dict]:
+    import numpy as np
+
+    from megahit_tpu_torch.core import kernels, kmerops
+    from megahit_tpu_torch.graph import counter
+    from megahit_tpu_torch.io.lib import build_lib
+
+    k1 = 22
+    w = kmerops.words_per_kmer(k1)
+    lib = build_lib([data["r1"]], [data["r2"]], [], [])
+    starts = lib.starts
+    pool = lib.pool
+    total_words = pool.n_words + w + 1
+    words_np = pool.window_padded(0, total_words)
+    n_bases = int(starts[-1])
+    log(f"[4] main-path pool: {n_bases} bases, {total_words} words")
+
+    # --- kernel 1 at the main path's shapes (the count's single shot)
+    err1 = _parity_k1(torch, words_np, k1)
+    packed = torch.from_numpy(words_np.view("int32")).cuda()
+    q = total_words - w
+    q_pad = kernels.q_padded(total_words, k1)
+    n_out = q_pad * 16
+    ms1 = cuda_ms(torch, lambda: kernels.canonical_all_kmers(packed, k1))
+    plain1 = cuda_ms(
+        torch, lambda: kernels.canonical_all_kmers_plain(packed, k1),
+        iters=3, warm=1)
+    bytes1 = (q_pad + w) * 4 + w * 4 * n_out
+    bound1 = bytes1 / HBM_BYTES_PER_S * 1e3
+    log(f"[4] canonical_all_kmers k1={k1}: {n_out} offsets, "
+        f"max_abs_err {err1}, {ms1:.3f} ms (plain {plain1:.3f} ms), "
+        f"bound {bound1:.3f} ms ({bytes1} B), {bound1 / ms1:.1%} of bound")
+    for kk in (32, 42, 56):
+        e = _parity_k1(torch, words_np[: (1 << 20) + 8], kk)
+        log(f"[4] canonical_all_kmers k1={kk}: max_abs_err {e}")
+        err1 = max(err1, e)
+
+    # --- kernel 2 on the sorted keys the main path gives it
+    vm = np.zeros(q * 16, dtype=bool)
+    span = min(q * 16, n_bases)
+    vm[:span] = counter.window_valid_range(starts, k1, 0, span)
+    pm = torch.from_numpy(kernels.phase_grouped_mask(vm)).cuda()
+    cols1 = kernels.canonical_all_kmers(packed, k1)
+    words = [torch.where(pm, kmerops.u32_value(cols1[i]), kmerops.M32)
+             for i in range(w)]
+    del cols1
+    words = counter._sorted_words(words)
+    cols = [kmerops.i32_bits(c) for c in words]
+    n_inv = int((~pm).sum())
+    n = cols[0].shape[0]
+    err2 = _parity_k2(torch, cols, n_inv)
+    ms2 = cuda_ms(torch, lambda: kernels.count_sorted_runs(cols, n_inv))
+    plain2 = cuda_ms(
+        torch, lambda: kernels.count_sorted_runs_plain(cols, n_inv),
+        iters=3, warm=1)
+    packed_key = kmerops.pack_sort_keys(words)[0]
+    lib2 = cuda_ms(torch, lambda: torch.unique_consecutive(
+        packed_key, return_counts=True))
+    bytes2 = w * 4 * n + 5 * n
+    bound2 = bytes2 / HBM_BYTES_PER_S * 1e3
+    log(f"[4] count_sorted_runs: n={n}, n_inv={n_inv}, max_abs_err "
+        f"{err2}, {ms2:.3f} ms (plain {plain2:.3f} ms, "
+        f"unique_consecutive {lib2:.3f} ms), bound {bound2:.3f} ms "
+        f"({bytes2} B), {bound2 / ms2:.1%} of bound")
+    del words, cols, packed_key
+
+    # the count's chunked branch (pools above one batch) against its
+    # single-shot branch, both on the card
+    t0 = time.monotonic()
+    fused = counter._count_fused(pool, starts, k1, 2, "cuda")
+    chunked = counter._count_chunked(pool, starts, k1, 2, CHUNK, "cuda")
+    if fused is None or not all(
+            np.array_equal(a, b) for a, b in zip(fused, chunked)):
+        fail("count on cuda: the chunked branch differs from the single "
+             "shot")
+    log(f"[4] count on cuda: chunked ({-(-n_bases // CHUNK)} batches) "
+        f"== single shot: {len(fused[0])} solid, {len(fused[2])} rare "
+        f"keys ({time.monotonic() - t0:.1f}s)")
+    del fused, chunked
+
+    # odd n, sentinel tail, one run spanning many blocks, W = 1..3
+    rng = np.random.default_rng(5)
+    for n_odd, dup, ninv, ncols in ((1_000_003, 40, 333, 2),
+                                    (1_000_003, 1_000_003, 9, 1),
+                                    (98_305, 3, 1, 3)):
+        hi = np.sort(rng.integers(0, dup, n_odd)).astype(np.uint32)
+        hi[n_odd - ninv:] = 0xFFFFFFFF
+        extra = [np.zeros(n_odd, np.uint32) for _ in range(ncols - 1)]
+        for e_ in extra:
+            e_[n_odd - ninv:] = 0xFFFFFFFF
+        c = [torch.from_numpy(a.view("int32")).cuda()
+             for a in [hi] + extra]
+        e = _parity_k2(torch, c, ninv)
+        log(f"[4] count_sorted_runs n={n_odd} dup={dup} n_inv={ninv} "
+            f"W={ncols}: max_abs_err {e}")
+        err2 = max(err2, e)
+    if err1 or err2:
+        fail(f"kernel parity: canonical_all_kmers {err1}, "
+             f"count_sorted_runs {err2}")
+    return [
+        {"name": "canonical_all_kmers", "route": "cuda",
+         "source": "megahit_tpu_torch/csrc/canonical_kmers.cu",
+         "replaces": "megahit_tpu/core/pallas_kernels.py:105",
+         "launches": 0, "max_abs_err": err1, "ms": ms1,
+         "plain_ms": plain1, "bound_ms": bound1, "bound_by": "bytes",
+         "library_ms": None},
+        {"name": "count_sorted_runs", "route": "cuda",
+         "source": "megahit_tpu_torch/csrc/count_runs.cu",
+         "replaces": "megahit_tpu/core/pallas_kernels.py:286",
+         "launches": 0, "max_abs_err": err2, "ms": ms2,
+         "plain_ms": plain2, "bound_ms": bound2, "bound_by": "bytes",
+         "library_ms": lib2},
+    ]
+
+
+def _run_cli(argv: list[str]) -> None:
+    from megahit_tpu_torch.__main__ import main as cli
+
+    rc = cli(argv)
+    if rc != 0:
+        fail(f"megahit_tpu_torch {' '.join(argv)} exited {rc}")
+
+
+def phase_fixtures() -> None:
+    out = os.path.join(DATA, "fixtures")
+    t0 = time.monotonic()
+    _run_cli(["--test", "--k-list", "21", "--device", "cuda", "-f",
+              "-o", os.path.join(out, "cuda")])
+    t1 = time.monotonic()
+    _run_cli(["--test", "--k-list", "21", "--device", "cpu", "-f",
+              "-o", os.path.join(out, "cpu")])
+    t2 = time.monotonic()
+    with open(os.path.join(out, "cuda", "final.contigs.fa"), "rb") as f:
+        a = f.read()
+    with open(os.path.join(out, "cpu", "final.contigs.fa"), "rb") as f:
+        b = f.read()
+    if a != b or not a:
+        fail("fixture final.contigs.fa differs between cuda and cpu")
+    log(f"[5] fixtures --k-list 21: cuda ({t1 - t0:.1f}s) and cpu "
+        f"({t2 - t1:.1f}s) final.contigs.fa byte-identical "
+        f"({a.count(b'>')} contigs)")
+
+
+def _fasta_lengths(path: str) -> list[int]:
+    lens, cur = [], 0
+    with open(path) as fh:
+        for line in fh:
+            if line.startswith(">"):
+                if cur:
+                    lens.append(cur)
+                cur = 0
+            else:
+                cur += len(line.strip())
+    if cur:
+        lens.append(cur)
+    return lens
+
+
+def _log_stages(tag: str, out: str) -> None:
+    """Per-stage wall seconds from a run's `phase ...` log lines."""
+    spans = {}
+    with open(os.path.join(out, "log")) as fh:
+        for line in fh:
+            m = re.search(r"phase (\S+): ([0-9.]+)s total", line)
+            if m:
+                spans[m.group(1)] = float(m.group(2))
+    for name, secs in sorted(spans.items(), key=lambda x: -x[1]):
+        log(f"{tag}   stage {name}: {secs:.2f}s")
+
+
+def phase_main_path(torch, data) -> dict:
+    from megahit_tpu_torch.core import kernels
+    from megahit_tpu_torch.graph.output import contig_stats
+
+    import numpy as np
+
+    from torch.profiler import ProfilerActivity, profile
+
+    out = os.path.join(DATA, "isolate_out")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.canonical_all_kmers.launches = 0
+    kernels.count_sorted_runs.launches = 0
+    # device activity only (CUPTI): the host side runs unrecorded
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        _run_cli(["-1", data["r1"], "-2", data["r2"], "--k-list", "21",
+                  "--device", "cuda", "-f", "-o", out])
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    launches = {"canonical_all_kmers": kernels.canonical_all_kmers.launches,
+                "count_sorted_runs": kernels.count_sorted_runs.launches}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[6] isolate --k-list 21 on cuda: {wall:.1f}s wall, "
+        f"launches {launches}, peak device memory {peak / 2**30:.2f} GiB")
+    ops = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in ops) / 1e6
+    log(f"[6] device busy {busy:.3f}s of {wall:.1f}s wall "
+        f"(idle share {1 - busy / wall:.1%}), "
+        f"{sum(e.count for e in ops)} device ops")
+    for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"[6]   device {e.self_device_time_total / 1e3:.2f} ms "
+            f"x{e.count}: {e.key[:70]}")
+    _log_stages("[6]", out)
+    lens = _fasta_lengths(os.path.join(out, "final.contigs.fa"))
+    st = contig_stats(np.array(lens, dtype=np.int64))
+    genome_len = sum(_fasta_lengths(data["genome"]))
+    log(f"[6] contigs: {st['n']}, total {st['total']} bp (genome "
+        f"{genome_len} bp), N50 {st['n50']} bp, max {st['max']} bp")
+    if min(launches.values()) <= 0:
+        fail(f"a kernel was not launched on the main path: {launches}")
+    if not 0.9 * genome_len <= st["total"] <= 1.1 * genome_len:
+        fail(f"contig total {st['total']} not within 10% of "
+             f"{genome_len}")
+    if st["n50"] <= 10_000:
+        fail(f"N50 {st['n50']} <= 10 kbp")
+    return launches
+
+
+def phase_cpu_match(data) -> None:
+    """The isolate again with --device cpu: the contigs must be those of
+    the cuda run, byte for byte."""
+    out = os.path.join(DATA, "isolate_out_cpu")
+    t0 = time.monotonic()
+    _run_cli(["-1", data["r1"], "-2", data["r2"], "--k-list", "21",
+              "--device", "cpu", "-f", "-o", out])
+    wall = time.monotonic() - t0
+    with open(os.path.join(out, "final.contigs.fa"), "rb") as f:
+        a = f.read()
+    with open(os.path.join(DATA, "isolate_out", "final.contigs.fa"),
+              "rb") as f:
+        b = f.read()
+    if a != b:
+        fail("isolate final.contigs.fa differs between cpu and cuda")
+    log(f"[7] isolate --k-list 21 on cpu: {wall:.1f}s wall, "
+        f"final.contigs.fa byte-identical to the cuda run")
+    _log_stages("[7]", out)
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    try:
+        import megahit_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: megahit_tpu_torch not found next to this "
+              f"script ({e})", file=sys.stderr)
+        return 2
+    t0 = time.monotonic()
+    card = phase_card(torch)
+    phase_build()
+    data = phase_data()
+    kern = phase_kernels(torch, data)
+    phase_fixtures()
+    launches = phase_main_path(torch, data)
+    phase_cpu_match(data)
+    for kd in kern:
+        kd["launches"] = launches[kd["name"]]
+    mods = sorted(m for m in sys.modules
+                  if m == "jax" or m.startswith("jax.")
+                  or m == "megahit_tpu" or m.startswith("megahit_tpu."))
+    if mods:
+        fail(f"JAX or the JAX package was imported: {mods[:5]}")
+    log(f"[8] total {time.monotonic() - t0:.1f}s")
+    print(card)
+    print(json.dumps({"kernels": kern}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

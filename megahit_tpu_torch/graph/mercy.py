@@ -1,0 +1,310 @@
+"""Mercy k-mer rescue.
+
+Reference semantics (SeqToSdbg::GenMercyEdges, seq_to_sdbg.cpp:171-357):
+for every candidate read, each node position i (k-mer = read[i:i+k]) is
+flagged has_in if some solid edge ends with that k-mer and has_out if
+some solid edge starts with it. Scanning left to right, a maximal run of
+positions between the latest in-only position `a` and the next flagged
+position `b` with status(b) = out-only donates the read's (k+1)-mers at
+windows [a, b) as multiplicity-1 "mercy" edges.
+
+k-mer extraction runs as torch ops on the given device; the membership
+queries and the gap state machine run on host (numpy + the native seed
+scan). Counterpart of megahit_tpu/graph/mercy.py.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core import kmerops
+from ..utils.device import resolve_device
+from ..utils.log import get_logger
+from .counter import window_valid_mask
+
+
+def _neighbor_flags(packed: torch.Tensor, solid_keys: torch.Tensor,
+                    k: int, k1: int):
+    """has_in/has_out for the k-mer at every base offset of `packed`
+    (device path for k > 31: 8 canonical membership queries)."""
+    kmers = kmerops.extract_all_kmers(packed, k)
+    q = kmers.shape[0]
+    has_in = torch.zeros(q, dtype=torch.bool, device=packed.device)
+    has_out = torch.zeros_like(has_in)
+    for c in range(4):
+        q_in, _ = kmerops.canonical_kmers(
+            kmerops.prepend_base(kmers, c, k1), k1)
+        q_out, _ = kmerops.canonical_kmers(
+            kmerops.mask_tail(kmerops.set_base(kmers, k, c), k1), k1)
+        _, f_in = kmerops.searchsorted_keys(solid_keys, q_in)
+        _, f_out = kmerops.searchsorted_keys(solid_keys, q_out)
+        has_in |= f_in
+        has_out |= f_out
+    return has_in, has_out
+
+
+def _node_sets_u64(solid_keys: np.ndarray, k1: int):
+    """Union table of the k-prefixes and k-suffixes of both strands of
+    the solid edge set, with a per-row 2-bit flag (1 = prefix: some
+    solid edge starts with it; 2 = suffix: some solid edge ends with
+    it). One binary search per query, no canonicalization."""
+    k = k1 - 1
+    keys = np.asarray(solid_keys, dtype=np.uint32)
+    both = np.concatenate([keys, kmerops.revcomp_kmers(keys, k1)], axis=0)
+    prefixes = kmerops.mask_tail(both, k)
+    suffixes = kmerops.mask_tail(kmerops.drop_first_base(both, k1), k)
+    p = np.unique(kmerops.keys_to_u64(prefixes, k))
+    s = np.unique(kmerops.keys_to_u64(suffixes, k))
+    table = np.unique(np.concatenate([p, s]))
+    flags = np.zeros(len(table), dtype=np.uint8)
+    flags[np.searchsorted(table, p)] |= 1
+    flags[np.searchsorted(table, s)] |= 2
+    return table, flags
+
+
+def _flags_mt(table: np.ndarray, flags: np.ndarray, q: np.ndarray,
+              pool) -> np.ndarray:
+    """Per-query node flags: flags[idx] where table[idx] == q, else 0
+    (multithreaded over query slices)."""
+    n = len(q)
+    out = np.zeros(n, dtype=np.uint8)
+    if len(table) == 0 or n == 0:
+        return out
+
+    def one(sl):
+        i = np.searchsorted(table, q[sl])
+        i = np.minimum(i, len(table) - 1)
+        return sl, np.where(table[i] == q[sl], flags[i], 0)
+
+    from ..utils.threads import num_threads
+
+    parts = max(1, min(8, num_threads(), n // (1 << 18)))
+    if parts == 1 or pool is None:
+        sl = slice(0, n)
+        _, out[sl] = one(sl)
+        return out
+    step = -(-n // parts)
+    for sl, f in pool.map(
+        one, [slice(a, min(n, a + step)) for a in range(0, n, step)]
+    ):
+        out[sl] = f
+    return out
+
+
+def _u64(keys: torch.Tensor) -> np.ndarray:
+    """(N, W<=2) int64 torch words -> host u64 (word0 << 32 | word1)."""
+    words = kmerops.to_numpy(keys)
+    return kmerops.keys_to_u64(words, 32)
+
+
+def _chunk_windows(packed_np, n_bases, w, chunk_bases):
+    """(lo, lo_w, size, span) per word-aligned chunk of the pool."""
+    n_dense = (len(packed_np) - w) * 16
+    for lo in range(0, n_bases, chunk_bases):
+        hi = min(n_dense, lo + chunk_bases)
+        lo_w = lo // 16
+        size = min((hi + 15) // 16 + w + 1, len(packed_np)) - lo_w
+        span = min(min(hi, n_bases) - lo, (size - w) * 16)
+        yield lo, lo_w, size, span
+        if hi >= n_dense:
+            break
+
+
+def _flags_host_u64(packed, packed_np, solid_keys, k, k1, n_bases,
+                    chunk_bases):
+    """k <= 31: dense k-mers on the device -> host u64 -> membership in
+    the prefix/suffix node sets."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ..utils.threads import num_threads
+
+    table, tflags = _node_sets_u64(solid_keys, k1)
+    w = kmerops.words_per_kmer(k1)
+    has_in = np.zeros(n_bases, dtype=bool)
+    has_out = np.zeros(n_bases, dtype=bool)
+    with ThreadPoolExecutor(max_workers=min(8, num_threads())) as pool:
+        for lo, lo_w, size, span in _chunk_windows(
+                packed_np, n_bases, w, chunk_bases):
+            u = _u64(kmerops.extract_all_kmers(packed[lo_w:lo_w + size], k))
+            f = _flags_mt(table, tflags, u[:span], pool)
+            has_out[lo : lo + span] = (f & 1) != 0
+            has_in[lo : lo + span] = (f & 2) != 0
+    return has_in, has_out
+
+
+def _candidate_reads(packed, packed_np, rare_keys, k1, starts,
+                     valid_all, chunk_bases, pool) -> np.ndarray:
+    """Reads containing at least one NON-solid (k1)-window: a fully-
+    solid read cannot host a mercy gap."""
+    n_reads = len(starts) - 1
+    cand = np.zeros(n_reads, dtype=bool)
+    if len(rare_keys) == 0:
+        return cand
+    from ..native import SCAN_CANON, seed_scan
+
+    scan = seed_scan(packed_np, starts, k1, rare_keys, SCAN_CANON)
+    if scan is not None:
+        _, rid, _, _, _ = scan
+        cand[rid] = True
+        return cand
+    rare_u64 = kmerops.keys_to_u64(rare_keys, k1)
+    w = kmerops.words_per_kmer(k1)
+    n_bases = int(starts[-1])
+    for lo, lo_w, size, span in _chunk_windows(
+            packed_np, n_bases, w, chunk_bases):
+        canon, _ = kmerops.canonical_kmers(
+            kmerops.extract_all_kmers(packed[lo_w:lo_w + size], k1), k1)
+        u = _u64(canon[:span])
+        u[~valid_all[lo : lo + span]] = np.uint64(0xFFFFFFFFFFFFFFFF)
+        _, found = kmerops.member_sorted_mt(rare_u64, u, pool)
+        loc = np.flatnonzero(found)
+        if len(loc):
+            rid = np.searchsorted(starts, loc + lo, side="right") - 1
+            cand[rid] = True
+    return cand
+
+
+def find_mercy_edges(
+    flat_codes,
+    starts: np.ndarray,
+    solid_keys: np.ndarray,
+    k1: int,
+    chunk_bases: int = 1 << 22,
+    rare_keys: np.ndarray | None = None,
+    device="cuda",
+) -> np.ndarray:
+    """Return (M, W) canonical mercy (k1)-mers (deduplicated).
+
+    flat_codes/starts: the read pool. solid_keys: sorted canonical
+    solid (k1)-mers. k1 = edge length = megahit k + 1. rare_keys
+    (optional): the counter's NON-solid distinct keys; when given, the
+    node-flag scan runs only over candidate reads."""
+    device = resolve_device(device)
+    chunk_bases = max(1 << 16, (chunk_bases + 15) & ~15)
+    log = get_logger()
+    k = k1 - 1
+    w = kmerops.words_per_kmer(k1)
+    n_bases = int(starts[-1])
+    if n_bases < k1 or len(solid_keys) == 0:
+        return np.zeros((0, w), dtype=np.uint32)
+
+    from .counter import as_pool
+
+    pool = as_pool(flat_codes)
+    packed_np = np.concatenate(
+        [pool.window_padded(0, pool.n_words),
+         np.zeros(w + 1, dtype=np.uint32)])
+    packed = kmerops.to_torch(packed_np, device)
+
+    if k <= 31 and rare_keys is not None:
+        return _mercy_candidate_reads_path(
+            packed, packed_np, starts, solid_keys, rare_keys, k, k1,
+            chunk_bases, log)
+    if k <= 31:
+        has_in, has_out = _flags_host_u64(
+            packed, packed_np, solid_keys, k, k1, n_bases, chunk_bases)
+    else:
+        solid = kmerops.to_torch(solid_keys, device)
+        has_in = np.zeros(n_bases, dtype=bool)
+        has_out = np.zeros(n_bases, dtype=bool)
+        for lo, lo_w, size, span in _chunk_windows(
+                packed_np, n_bases, w, chunk_bases):
+            hi_c, ho_c = _neighbor_flags(
+                packed[lo_w:lo_w + size], solid, k, k1)
+            has_in[lo : lo + span] = hi_c[:span].cpu().numpy()
+            has_out[lo : lo + span] = ho_c[:span].cpu().numpy()
+
+    # positions whose k-window crosses a read boundary act as hard
+    # resets (status "both"); reads shorter than k+2 are skipped
+    # entirely (reference seq_to_sdbg.cpp:202 `read_len < opt_.k + 2`)
+    valid_k = window_valid_mask(starts, k, n_bases)
+    lengths = np.diff(starts)
+    status = has_in.astype(np.int8) | (has_out.astype(np.int8) << 1)
+    status[~valid_k] = 3
+    status[np.repeat(lengths < k1 + 1, lengths)] = 3
+    return _emit_gap_edges(
+        np.flatnonzero(status == 1), np.flatnonzero(status == 2),
+        np.flatnonzero(status >= 2), starts, packed, k1, w, log)
+
+
+def _mercy_candidate_reads_path(packed, packed_np, starts, solid_keys,
+                                rare_keys, k, k1, chunk_bases, log
+                                ) -> np.ndarray:
+    """Node-flag scan restricted to candidate reads (identical output
+    to the dense scan: non-candidate reads are provably gap-free)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ..utils.threads import num_threads
+
+    w = kmerops.words_per_kmer(k1)
+    n_bases = int(starts[-1])
+    valid_all = window_valid_mask(starts, k1, n_bases)
+    lengths = np.diff(starts)
+    with ThreadPoolExecutor(max_workers=min(8, num_threads())) as pool:
+        cand = _candidate_reads(packed, packed_np, rare_keys, k1,
+                                starts, valid_all, chunk_bases, pool)
+        cand &= lengths >= k1 + 1
+        n_cand = int(cand.sum())
+        if n_cand == 0:
+            return np.zeros((0, w), dtype=np.uint32)
+        log.debug("mercy: %d/%d candidate reads", n_cand, len(cand))
+        rs = starts[:-1][cand]
+        re_ = starts[1:][cand]
+        seg = (re_ - rs).astype(np.int64)
+        total = int(seg.sum())
+        # ALL positions of every candidate read, ascending
+        pos = np.repeat(rs, seg) + (
+            np.arange(total, dtype=np.int64)
+            - np.repeat(np.cumsum(seg) - seg, seg))
+        read_end = np.repeat(re_, seg)
+        table, tflags = _node_sets_u64(solid_keys, k1)
+        f = np.empty(total, dtype=np.uint8)
+        for lo in range(0, total, chunk_bases):
+            hi = min(total, lo + chunk_bases)
+            keys_k = kmerops.extract_kmers(
+                packed, torch.from_numpy(pos[lo:hi]).to(packed.device), k)
+            f[lo:hi] = _flags_mt(table, tflags, _u64(keys_k), pool)
+    status = ((f >> 1) & 1) | ((f & 1) << 1)  # 1 in-only, 2 out-only
+    status[pos + k > read_end] = 3
+    return _emit_gap_edges(
+        pos[status == 1], pos[status == 2], pos[status >= 2],
+        starts, packed, k1, w, log)
+
+
+def _emit_gap_edges(one_list, b_list, stop_list, starts, packed, k1,
+                    w, log) -> np.ndarray:
+    """Gap windows from (in-only, out-only, stop) position lists: the
+    latest in-only position before each b, cancelled by any later stop
+    (status 2 or 3)."""
+    if len(b_list) == 0 or len(one_list) == 0:
+        return np.zeros((0, w), dtype=np.uint32)
+    ia = np.searchsorted(one_list, b_list)
+    a_list = np.where(ia > 0, one_list[np.maximum(ia - 1, 0)], -1)
+    is_ = np.searchsorted(stop_list, b_list)
+    prev_stop_b = np.where(is_ > 0, stop_list[np.maximum(is_ - 1, 0)],
+                           -1)
+    live = (a_list >= 0) & (a_list > prev_stop_b) & (b_list > 0)
+    a_list, b_list = a_list[live], b_list[live]
+    if len(a_list) == 0:
+        return np.zeros((0, w), dtype=np.uint32)
+    seg = (b_list - a_list).astype(np.int64)
+    total = int(seg.sum())
+    if total == 0:
+        return np.zeros((0, w), dtype=np.uint32)
+    pos = np.repeat(a_list, seg) + (
+        np.arange(total, dtype=np.int64)
+        - np.repeat(np.cumsum(seg) - seg, seg))
+    # a mercy window must itself be a full (k1)-window of its read
+    rid = np.searchsorted(starts, pos, side="right") - 1
+    pos = pos[pos + k1 <= starts[rid + 1]]
+    n_mercy_windows = len(pos)
+    if n_mercy_windows == 0:
+        return np.zeros((0, w), dtype=np.uint32)
+    keys = kmerops.extract_kmers(
+        packed, torch.from_numpy(pos).to(packed.device), k1)
+    canon, _ = kmerops.canonical_kmers(keys, k1)
+    mercy = np.unique(kmerops.to_numpy(canon), axis=0)
+    log.info("mercy: %d gap windows -> %d distinct mercy edges",
+             n_mercy_windows, len(mercy))
+    return mercy

@@ -1,0 +1,308 @@
+"""The checkpointed one-k assembly pipeline.
+
+Re-expression of the reference Python driver (src/megahit:969-1033
+main, :250-280 Checkpoint) for a single k: build read lib -> k graph
+(solid + mercy edges) -> assemble -> merge final contigs. Stage
+artifacts live in out/tmp/k{K}/ and out/intermediate_contigs/ in the
+same formats as megahit_tpu's, so runs resume (`--continue`) at stage
+granularity. The multi-k ladder (local assembly, iterate, the contig
+union) is not ported yet; Options.validate refuses a k list of more
+than one k.
+
+Counterpart of megahit_tpu/pipeline/driver.py.
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+import time
+
+import numpy as np
+
+from ..graph.counter import count_canonical_kmers
+from ..graph.mercy import find_mercy_edges
+from ..graph.sdbg import Sdbg, sdbg_from_edges
+from ..io.contig_io import ContigRecord, read_contigs, write_contigs
+from ..io.lib import SequenceLib, build_lib
+from ..pipeline.assemble import AssembleOptions, assemble
+from ..pipeline.options import Options
+from ..utils.device import resolve_device
+from ..utils.log import get_logger
+from ..utils.timers import PhaseTimer, max_rss_mb
+
+
+class Checkpoint:
+    """Stage counter persisted as "<n> done" lines
+    (reference src/megahit:250-280)."""
+
+    def __init__(self, path: str, resume: bool):
+        self.path = path
+        self.idx = 0
+        self.done_upto = -1
+        self.timer = PhaseTimer()
+        if resume and os.path.exists(path):
+            with open(path) as fh:
+                for line in fh:
+                    parts = line.split()
+                    if len(parts) == 2 and parts[1] == "done":
+                        self.done_upto = max(self.done_upto, int(parts[0]))
+
+    def run(self, fn, *args, **kwargs):
+        idx = self.idx
+        self.idx += 1
+        log = get_logger()
+        if idx <= self.done_upto:
+            log.info("skipping checkpointed stage %d (%s)",
+                     idx, fn.__name__)
+            return None
+        t0 = time.monotonic()
+        with self.timer.phase(fn.__name__):
+            out = fn(*args, **kwargs)
+        log.info(
+            "stage %d (%s%s): %.2fs, maxrss %.0f MB",
+            idx, fn.__name__,
+            "".join(f" {a}" for a in args), time.monotonic() - t0,
+            max_rss_mb(),
+        )
+        with open(self.path, "a") as fh:
+            fh.write(f"{idx} done\n")
+        return out
+
+
+class Pipeline:
+    def __init__(self, opt: Options):
+        self.opt = opt
+        self.device = resolve_device(opt.device)
+        self.log = get_logger()
+        self.out_dir = opt.out_dir
+        self.tmp_dir = self._resolve_tmp_dir(opt)
+        self.contig_dir = os.path.join(opt.out_dir, "intermediate_contigs")
+        self.lib: SequenceLib | None = None
+        self.timer = PhaseTimer()  # sub-stage spans (checkpoint-free)
+
+    # ---------------- paths
+
+    @staticmethod
+    def _resolve_tmp_dir(opt: Options) -> str:
+        """Reference --tmp-dir: a fresh megahit_tmp_* dir inside the
+        given root (src/megahit:458-461), written back to opt.temp_dir
+        so --continue reuses it."""
+        if not opt.temp_dir:
+            return os.path.join(opt.out_dir, "tmp")
+        if os.path.basename(opt.temp_dir).startswith("megahit_tmp_"):
+            return opt.temp_dir  # already resolved (resumed run)
+        if opt.continue_mode:
+            return opt.temp_dir  # run() re-resolves from saved options
+        import tempfile
+
+        os.makedirs(opt.temp_dir, exist_ok=True)
+        opt.temp_dir = tempfile.mkdtemp(
+            dir=opt.temp_dir, prefix="megahit_tmp_")
+        return opt.temp_dir
+
+    def graph_prefix(self, k: int) -> str:
+        d = os.path.join(self.tmp_dir, f"k{k}")
+        os.makedirs(d, exist_ok=True)
+        return os.path.join(d, f"k{k}")
+
+    def contig_prefix(self, k: int) -> str:
+        os.makedirs(self.contig_dir, exist_ok=True)
+        return os.path.join(self.contig_dir, f"k{k}")
+
+    @property
+    def lib_path(self) -> str:
+        return os.path.join(self.out_dir, "reads.lib.npz")
+
+    # ---------------- stages
+
+    def stage_build_lib(self) -> None:
+        o = self.opt
+        lib = build_lib(o.pe1, o.pe2, o.pe12, o.se)
+        lib.save(self.lib_path)
+        self.log.info(
+            "read lib: %d seqs, %d bases, max len %d",
+            lib.num_seqs, lib.num_bases, lib.max_len,
+        )
+
+    def _batch_windows(self) -> int:
+        """Count batch size from the -m memory budget (reference memory
+        autodetect, src/megahit:596-609: default 0.9 x RAM)."""
+        m = self.opt.memory
+        if m <= 1:
+            budget = m * os.sysconf("SC_PAGE_SIZE") * os.sysconf(
+                "SC_PHYS_PAGES")
+        else:
+            budget = m
+        # ~64 B/window peak across extraction + sort working sets
+        return int(max(1 << 20, min(1 << 26, int(budget) // 64)))
+
+    def _load_lib(self) -> SequenceLib:
+        if self.lib is None:
+            self.lib = SequenceLib.load(self.lib_path)
+        return self.lib
+
+    def stage_first_graph(self) -> None:
+        """count + mercy at k (reference build_first_graph,
+        src/megahit:789-802, the default 2-pass path)."""
+        o = self.opt
+        lib = self._load_lib()
+        k1 = o.k_min + 1
+        with self.timer.phase("first_graph.count"):
+            keys, counts, rare = count_canonical_kmers(
+                lib.pool, lib.starts, k1, o.min_count,
+                batch_windows=self._batch_windows(),
+                return_rare=True, device=self.device,
+            )
+        self.log.info("k=%d: %d solid edges", o.k_min, len(keys))
+        # min_count <= 1: every observed (k+1)-mer is already solid, so
+        # the mercy scan provably returns nothing - skip it
+        if not o.no_mercy and o.min_count > 1:
+            with self.timer.phase("first_graph.mercy"):
+                mercy = find_mercy_edges(
+                    lib.pool, lib.starts, keys, k1, rare_keys=rare,
+                    device=self.device,
+                )
+            if len(mercy):
+                keys = np.concatenate([keys, mercy], axis=0)
+                counts = np.concatenate(
+                    [counts, np.ones(len(mercy), np.int32)])
+        np.savez(self.graph_prefix(o.k_min) + ".edges.npz",
+                 keys=keys, counts=counts)
+        # multiplicity histogram artifact (reference .counting file,
+        # kmer_counter.cpp:409-410)
+        vals, cnts = np.unique(counts, return_counts=True)
+        with open(self.graph_prefix(o.k_min) + ".counting", "w") as fh:
+            for v, c in zip(vals, cnts):
+                fh.write(f"{v} {c}\n")
+
+    def stage_assemble(self, k: int) -> None:
+        """Load the k graph inputs, assemble, write contig files
+        (reference assemble(), src/megahit:866-903)."""
+        o = self.opt
+        with self.timer.phase(f"assemble.k{k}.graph_build"):
+            sdbg = self._build_sdbg_for_k(k)
+        if sdbg.size == 0:
+            self.log.warning("k=%d: empty graph", k)
+        min_standalone = max(
+            min(o.k_max * 3 - 1, int(o.min_contig_len * 1.5)),
+            o.min_contig_len,
+        )
+        if o.max_tip_len >= 0:
+            min_standalone = max(
+                o.max_tip_len + o.k_max - 1, o.min_contig_len)
+        aopt = AssembleOptions(
+            min_standalone=min_standalone,
+            prune_level=o.prune_level,
+            merge_len=int(o.merge_len),
+            merge_similar=o.merge_similar,
+            cleaning_rounds=o.cleaning_rounds,
+            disconnect_ratio=o.disconnect_ratio,
+            low_local_ratio=o.low_local_ratio,
+            min_depth=o.prune_depth,
+            bubble_level=o.bubble_level,
+            is_final_round=(k == o.k_max),
+            careful_bubble=(k < o.k_max),
+            output_standalone=o.no_local,
+        )
+        if o.max_tip_len == -1 and k * 3 - 1 > o.min_contig_len * 1.5:
+            aopt.max_tip_len = max(1, int(o.min_contig_len * 1.5 + 1 - k))
+        else:
+            aopt.max_tip_len = o.max_tip_len
+        with self.timer.phase(f"assemble.k{k}.clean_output"):
+            res = assemble(sdbg, aopt)
+        cp = self.contig_prefix(k)
+        write_contigs(cp + ".contigs.fa", res.contigs)
+        write_contigs(cp + ".final.contigs.fa", res.final_contigs)
+        write_contigs(cp + ".addi.fa", res.addi_contigs)
+        write_contigs(cp + ".bubble_seq.fa", res.bubbles)
+
+    def _build_sdbg_for_k(self, k: int) -> Sdbg:
+        """The k graph from the first-graph edge file (the
+        sdbg_from_edges branch of megahit_tpu's builder; reference
+        seq2sdbg --input_prefix)."""
+        km = k + 1  # edge length
+        prefix = self.graph_prefix(k)
+        if os.path.exists(prefix + ".sdbg.npz"):
+            return Sdbg.load(prefix + ".sdbg.npz", device=self.device)
+        edge_file = prefix + ".edges.npz"
+        if os.path.exists(edge_file):
+            z = np.load(edge_file)
+            return sdbg_from_edges(z["keys"], z["counts"], km,
+                                   device=self.device)
+        return sdbg_from_edges(
+            np.zeros((0, 1), np.uint32), np.zeros(0, np.int32), km,
+            device=self.device)
+
+    def stage_merge_final(self, final_k: int) -> None:
+        """cat *.final.contigs.fa + k_max contigs, filter by length
+        (reference merge_final, src/megahit:917-936)."""
+        o = self.opt
+        name = "final.contigs.fa" if not o.out_prefix else \
+            o.out_prefix + ".contigs.fa"
+        out_path = os.path.join(self.out_dir, name)
+        merged: list[ContigRecord] = []
+        for k in o.k_list:
+            p = self.contig_prefix(k) + ".final.contigs.fa"
+            if os.path.exists(p):
+                merged.extend(read_contigs(p))
+        last = self.contig_prefix(final_k) + ".contigs.fa"
+        if os.path.exists(last):
+            merged.extend(read_contigs(last))
+        merged = [c for c in merged if c.length >= o.min_contig_len]
+        write_contigs(out_path, merged)
+        lengths = np.array([c.length for c in merged], dtype=np.int64)
+        from ..graph.output import contig_stats
+
+        st = contig_stats(lengths)
+        self.log.info(
+            "%d contigs, total %d bp, min %d bp, max %d bp, avg %d bp, "
+            "N50 %d bp",
+            st["n"], st["total"], st["min"], st["max"], st["avg"],
+            st["n50"],
+        )
+
+    # ---------------- main
+
+    def run(self) -> dict[str, float]:
+        """Run (or resume) the pipeline; returns the per-phase wall
+        seconds it logged."""
+        o = self.opt
+        t0 = time.time()
+        os.makedirs(self.out_dir, exist_ok=True)
+        opt_path = os.path.join(self.out_dir, "options.json")
+        if o.continue_mode and os.path.exists(opt_path):
+            saved = Options.load(opt_path)
+            saved.continue_mode = True
+            saved.device = o.device
+            self.opt = o = saved
+            self.tmp_dir = self._resolve_tmp_dir(o)
+        else:
+            if o.temp_dir and not os.path.basename(
+                    o.temp_dir).startswith("megahit_tmp_"):
+                prev, o.continue_mode = o.continue_mode, False
+                self.tmp_dir = self._resolve_tmp_dir(o)
+                o.continue_mode = prev
+            o.save(opt_path)
+        from ..utils.threads import set_num_threads
+
+        set_num_threads(o.num_cpu_threads)
+        cp = Checkpoint(os.path.join(self.out_dir, "checkpoints.txt"),
+                        resume=o.continue_mode)
+
+        cp.run(self.stage_build_lib)
+        self.log.info("k list: %s", ",".join(map(str, o.k_list)))
+        cp.run(self.stage_first_graph)
+        cp.run(self.stage_assemble, o.k_min)
+        cp.run(self.stage_merge_final, o.k_max)
+
+        if not o.keep_tmp_files and os.path.exists(self.tmp_dir):
+            shutil.rmtree(self.tmp_dir)
+        open(os.path.join(self.out_dir, "done"), "w").close()
+        # per-phase span summary (reference xinfo timer lines)
+        spans = dict(cp.timer.phases)
+        spans.update(self.timer.phases)
+        for name, dt in sorted(spans.items(), key=lambda x: -x[1]):
+            self.log.info("phase %s: %.2fs total", name, dt)
+        self.log.info("ALL DONE. Time elapsed: %.1f s", time.time() - t0)
+        return spans

@@ -1,0 +1,156 @@
+"""The port's count kernels (megahit_tpu_torch.core.kernels).
+
+On the CPU the wrappers take the plain PyTorch versions, which are held
+here to megahit_tpu's Pallas kernels (interpret mode) and jnp
+references with exact equality. The CUDA kernels themselves are held to
+the plain versions by tests/test_torch_kernels_gpu.py (marked `gpu`,
+skipped without a card) and by chip_smoke.py on the card."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from megahit_tpu.core import kmerops as jk
+from megahit_tpu.core import pallas_kernels as pk
+from megahit_tpu_torch.core import kernels as tkern
+from megahit_tpu_torch.core import kmerops as tk
+
+
+def _i32(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, np.uint32).view(
+        np.int32))
+
+
+def _u32(t: torch.Tensor) -> np.ndarray:
+    return t.numpy().view(np.uint32)
+
+
+@pytest.mark.parametrize("k", [15, 22, 31, 42])
+def test_canonical_plain_matches_pallas(k):
+    rng = np.random.default_rng(99 + k)
+    packed = rng.integers(0, 2 ** 32, 4096 + 3, dtype=np.uint32)
+    ref = np.asarray(pk.canonical_all_kmers_reference(
+        jnp.asarray(packed), k))
+    pal = np.asarray(pk.canonical_all_kmers_pallas(
+        jnp.asarray(packed), k, interpret=True))
+    got = _u32(tkern.canonical_all_kmers(_i32(packed), k))
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got, pal)
+    assert tkern.q_padded(len(packed), k) * 16 == got.shape[1]
+
+
+@pytest.mark.parametrize("k", [56, 64, 255])
+def test_canonical_plain_wide_keys(k):
+    """Any k up to 255 (W up to 16) and a pool that is not a multiple
+    of the 2048-start block."""
+    rng = np.random.default_rng(k)
+    packed = rng.integers(0, 2 ** 32, 2100, dtype=np.uint32)
+    ref = np.asarray(pk.canonical_all_kmers_reference(
+        jnp.asarray(packed), k))
+    got = _u32(tkern.canonical_all_kmers_plain(_i32(packed), k))
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_phase_grouped_mask_matches():
+    rng = np.random.default_rng(3)
+    n = 5 * 2048 * 16 + 7 * 16
+    mask = rng.random(n) < 0.3
+    np.testing.assert_array_equal(tkern.phase_grouped_mask(mask),
+                                  pk.phase_grouped_mask(mask))
+    vals = np.arange(n, dtype=np.int64)
+    np.testing.assert_array_equal(tkern.phase_grouped_mask(vals),
+                                  pk.phase_grouped_mask(vals))
+
+
+@pytest.mark.parametrize("k", [22, 24, 31, 42, 56])
+def test_narrow_widen_tail_plane(k):
+    rng = np.random.default_rng(k)
+    w = jk.words_per_kmer(k)
+    keys = np.asarray(jk.mask_tail(
+        rng.integers(0, 2 ** 32, (256, w), dtype=np.uint32), k))
+    jcols = tuple(jnp.asarray(keys[:, i]) for i in range(w))
+    tcols = tuple(tk.to_torch(keys[:, i], "cpu") for i in range(w))
+    jn = pk.narrow_tail_plane(jcols, k)
+    tn = tkern.narrow_tail_plane(tcols, k)
+    narrowed = jn[-1].dtype == jnp.uint16
+    assert narrowed == (tn[-1].dtype == torch.int16)
+    if narrowed:
+        np.testing.assert_array_equal(
+            tn[-1].numpy().view(np.uint16), np.asarray(jn[-1]))
+    for a, b in zip(tkern.widen_tail_plane(tn), pk.widen_tail_plane(jn)):
+        np.testing.assert_array_equal(tk.to_numpy(a), np.asarray(b))
+
+
+def _runs_case(rng, n, dup, ninv):
+    hi = np.sort(rng.integers(0, dup, n)).astype(np.uint32)
+    lo = rng.integers(0, 2 ** 16, n).astype(np.uint16)
+    valid = np.ones(n, bool)
+    if ninv:
+        hi[-ninv:] = 0xFFFFFFFF
+        lo[-ninv:] = 0xFFFF
+        valid[-ninv:] = False
+    order = np.lexsort((lo, hi))
+    return hi[order], lo[order], valid[order]
+
+
+@pytest.mark.parametrize("n,dup,ninv", [
+    (32768, 1, 0), (98304, 40, 333), (65536, 65536, 9), (32768, 3, 1),
+])
+def test_count_plain_matches_pallas(n, dup, ninv):
+    hi, lo, valid = _runs_case(np.random.default_rng(n + dup), n, dup,
+                               ninv)
+    h0, c0 = pk.count_sorted_runs_pallas(
+        (jnp.asarray(hi), jnp.asarray(lo)), jnp.int32(ninv),
+        interpret=True)
+    h1, c1 = tkern.count_sorted_runs(
+        (_i32(hi), _i32(lo.astype(np.uint32))), ninv)
+    np.testing.assert_array_equal(h1.numpy(), np.asarray(h0))
+    np.testing.assert_array_equal(c1.numpy(), np.asarray(c0))
+
+
+@pytest.mark.parametrize("n,dup,ninv", [
+    (1, 1, 0), (1000, 1000, 7), (40_001, 30, 333), (70_007, 70_007, 1),
+    (33_000, 5, 33_000 - 1),
+])
+def test_count_plain_any_n(n, dup, ninv):
+    """n not a multiple of 32768, sentinel tails, one run spanning the
+    whole array, a pool that is nearly all sentinels."""
+    hi, lo, valid = _runs_case(np.random.default_rng(n), n, dup, ninv)
+    h0, c0 = jk.count_sorted_runs_soa(
+        (jnp.asarray(hi), jnp.asarray(lo)), jnp.asarray(valid))
+    h1, c1 = tkern.count_sorted_runs((_i32(hi), _i32(lo)), ninv)
+    np.testing.assert_array_equal(h1.numpy(), np.asarray(h0))
+    np.testing.assert_array_equal(c1.numpy(), np.asarray(c0))
+
+
+def test_wrappers_check_operands():
+    with pytest.raises(TypeError):
+        tkern.canonical_all_kmers(torch.zeros(100, dtype=torch.int64), 21)
+    with pytest.raises(ValueError):
+        tkern.canonical_all_kmers(torch.zeros((10, 10), dtype=torch.int32),
+                                  21)
+    with pytest.raises(ValueError):
+        tkern.canonical_all_kmers(torch.zeros(100, dtype=torch.int32), 256)
+    with pytest.raises(ValueError):
+        tkern.count_sorted_runs(
+            (torch.zeros(10, dtype=torch.int32),
+             torch.zeros(11, dtype=torch.int32)), 0)
+    with pytest.raises(ValueError):
+        tkern.count_sorted_runs((torch.zeros(0, dtype=torch.int32),), 0)
+
+
+def test_cpu_tensors_take_the_plain_version():
+    """On CPU tensors the wrappers compute the plain version and launch
+    nothing: the launch counters stay put."""
+    before = (tkern.canonical_all_kmers.launches,
+              tkern.count_sorted_runs.launches)
+    rng = np.random.default_rng(5)
+    packed = rng.integers(0, 2 ** 32, 300, dtype=np.uint32)
+    got = tkern.canonical_all_kmers(_i32(packed), 22)
+    want = tkern.canonical_all_kmers_plain(_i32(packed), 22)
+    assert torch.equal(got, want)
+    tkern.count_sorted_runs((got[0],), 0)
+    assert (tkern.canonical_all_kmers.launches,
+            tkern.count_sorted_runs.launches) == before
+
