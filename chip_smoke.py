@@ -17,9 +17,18 @@ Phases, each printing its own lines:
    pool at k1=22), at k1 in {32, 42, 56}, and (kernel 2) at an n that is
    not a multiple of 32768 with sentinel rows and one run spanning many
    blocks; with each kernel's time, byte bound and library yardstick;
-   and the count's chunked branch against its single shot on the card;
-5. the make_test_data fixtures with --k-list 21 on cuda and on cpu:
-   the two final.contigs.fa must be byte-identical;
+   and the count's chunked branch against its single shot on the card.
+   Then the two merge kernels (3, 4) through their path, sort_planes:
+   at 2^24 keys (uniform and duplicate-heavy) and at init_run=512,
+   max_tile=1024, n=8192, each sort_planes result against torch.sort,
+   then its merge levels one at a time, each against the plain version
+   and kernel 4's split search against its plain version; with each
+   kernel's launches per call (counters set to 0 just before the
+   uniform 2^24 call), time per launch, byte bound, and torch.sort of
+   the packed key;
+5. the make_test_data fixtures on cuda and on cpu, with --k-list 21,
+   with the default ladder, and with the default ladder and --no-local:
+   each pair of final.contigs.fa must be byte-identical;
 6. the main path: the CLI on the isolate with --k-list 21 on cuda, with
    every kernel launch counter set to 0 just before and read just
    after (each must be > 0), per-stage wall times, peak device memory,
@@ -27,10 +36,18 @@ Phases, each printing its own lines:
    activity only), and contigs checked against the genome (total within
    10%, N50 above 10 kbp);
 7. the isolate again with --device cpu: its final.contigs.fa must be
+   byte-identical to the cuda run's;
+8. the isolate with the default k list (no --k-list) on cuda, with the
+   kernel launch counters set to 0 just before and read just after
+   (each must be > 0): wall time, per-stage seconds, the rungs reached,
+   the device's busy time and idle share, peak device memory, and
+   contigs checked against the genome (total within 10%, N50 above 10
+   kbp); then the same on cpu, whose final.contigs.fa must be
    byte-identical to the cuda run's.
 
-It then prints the card line, one JSON line with every kernel's numbers,
-and as its last line {"ok": true, "device": {...}}. Any failed phase
+It then prints the card line, one JSON line with every kernel's numbers
+(kernels 1, 2 with the launches of [6] and, as ladder_launches, of
+[8]), and as its last line {"ok": true, "device": {...}}. Any failed phase
 exits non-zero without that line. Without a GPU it exits non-zero at
 once.
 """
@@ -272,6 +289,122 @@ def phase_kernels(torch, data) -> list[dict]:
     ]
 
 
+def _planes(torch, rng, n: int, dup: bool):
+    """48-bit keys as (hi int32, lo int16) planes on the card, the
+    inputs of megahit_tpu's tests/test_sortnet.py::mk: the low 4 bits of
+    lo zero; dup=True is duplicate-heavy (7 x 3 distinct keys)."""
+    import numpy as np
+
+    from megahit_tpu_torch.core import sortnet
+
+    hi = rng.integers(0, 2 ** 32, n, dtype=np.uint32)
+    lo = (rng.integers(0, 2 ** 12, n, dtype=np.uint32) << 4).astype(
+        np.uint16)
+    if dup:
+        hi = (hi % 7).astype(np.uint32)
+        lo = ((lo.astype(np.uint32) % 3) << 4).astype(np.uint16)
+    key = (hi.astype(np.int64) << 16) | lo.astype(np.int64)
+    return sortnet.unpack_key(torch.from_numpy(key).cuda())
+
+
+def _check_levels(torch, hi, lo, init_run, max_tile, timed):
+    """sort_planes' merge levels (sortnet.merge_levels) one at a time:
+    each kernel's output against merge_pairs_plain, the plain version
+    of both kernels, and at kernel 4's levels its split search against
+    merge_path_splits_plain. Returns (max |difference|, per kernel a
+    list of (ms, plain_ms) per level when timed)."""
+    from megahit_tpu_torch.core import sortnet
+
+    pk = sortnet.pack_key
+    hi, lo = sortnet.sort_rows(hi, lo, init_run)
+    err, times = 0, {"merge_pairs": [], "merge_path_level": []}
+    for run, merge in sortnet.merge_levels(hi.shape[0], init_run, max_tile):
+        name = merge.func.__name__
+        gh, gl = merge(hi, lo)
+        ph, pl = sortnet.merge_pairs_plain(hi, lo, run)
+        err = max(err, int((pk(gh, gl) - pk(ph, pl)).abs().max()))
+        if name == "merge_path_level":
+            got = sortnet.merge_path_splits(hi, lo, run, max_tile)
+            want = sortnet.merge_path_splits_plain(hi, lo, run, max_tile)
+            err = max(err, *(int((g.long() - w.long()).abs().max())
+                             for g, w in zip(got, want)))
+        if timed:
+            times[name].append((
+                cuda_ms(torch, lambda: merge(hi, lo), iters=5, warm=1),
+                cuda_ms(torch, lambda: sortnet.merge_pairs_plain(hi, lo, run),
+                        iters=2, warm=1)))
+        hi, lo = gh, gl
+    return err, times
+
+
+def phase_sortnet(torch) -> list[dict]:
+    """Kernels 3 and 4 through sort_planes on the card."""
+    import numpy as np
+
+    from megahit_tpu_torch.core import sortnet
+
+    n = 1 << 24
+    rng = np.random.default_rng(7)
+    err, launches, times = 0, None, None
+    for dup, size, init_run, max_tile in (
+            (False, n, sortnet.INIT_RUN, sortnet.MAX_TILE),
+            (True, n, sortnet.INIT_RUN, sortnet.MAX_TILE),
+            (False, 8192, 512, 1024),
+            (True, 8192, 512, 1024)):
+        hi, lo = _planes(torch, rng, size, dup=dup)
+        key = sortnet.pack_key(hi, lo)
+        # the path's run: sort_planes as a user calls it, counts from 0
+        sortnet.merge_pairs.launches = 0
+        sortnet.merge_path_level.launches = 0
+        oh, ol = sortnet.sort_planes(hi, lo, init_run, max_tile)
+        torch.cuda.synchronize()
+        counts = {"merge_pairs": sortnet.merge_pairs.launches,
+                  "merge_path_level": sortnet.merge_path_level.launches}
+        e = int((sortnet.pack_key(oh, ol) - torch.sort(key).values)
+                .abs().max())
+        first = launches is None
+        e2, t = _check_levels(torch, hi, lo, init_run, max_tile, timed=first)
+        log(f"[4] sort_planes n={size} dup={dup} init_run={init_run} "
+            f"max_tile={max_tile}: launches {counts}, result == torch.sort "
+            f"(max_abs_err {e}), every level == plain and every split == "
+            f"plain (max_abs_err {e2})")
+        err = max(err, e, e2)
+        if first:
+            launches, times = counts, t
+            total_ms = cuda_ms(torch, lambda: sortnet.sort_planes(hi, lo),
+                               iters=3, warm=1)
+            lib_ms = cuda_ms(torch, lambda: torch.sort(key), iters=5,
+                             warm=1)
+            log(f"[4] sort_planes n=2^24: {total_ms:.3f} ms per call; "
+                f"torch.sort of the packed int64 key {lib_ms:.3f} ms")
+        del hi, lo, key, oh, ol
+    if err:
+        fail(f"merge kernels disagree with their plain versions: {err}")
+    bound = 12 * n / HBM_BYTES_PER_S * 1e3  # 6 B read + 6 B written a key
+    out = []
+    for name, src, rep_line in (
+            ("merge_pairs", "merge_pairs.cu", 224),
+            ("merge_path_level", "merge_path.cu", 363)):
+        ms = [t[0] for t in times[name]]
+        plain = [t[1] for t in times[name]]
+        if launches[name] <= 0 or not ms:
+            fail(f"{name} was not launched by sort_planes: {launches}")
+        mean, pmean = sum(ms) / len(ms), sum(plain) / len(plain)
+        log(f"[4] {name}: {launches[name]} launches per sort_planes call, "
+            f"per launch {mean:.3f} ms (levels: "
+            + ", ".join(f"{m:.3f}" for m in ms)
+            + f"), plain {pmean:.3f} ms, bound {bound:.3f} ms "
+            f"({12 * n} B), {bound / mean:.1%} of bound")
+        out.append({
+            "name": name, "route": "cuda",
+            "source": f"megahit_tpu_torch/csrc/{src}",
+            "replaces": f"megahit_tpu/core/sortnet.py:{rep_line}",
+            "launches": launches[name], "max_abs_err": err, "ms": mean,
+            "plain_ms": pmean, "bound_ms": bound, "bound_by": "bytes",
+            "library_ms": lib_ms})
+    return out
+
+
 def _run_cli(argv: list[str]) -> None:
     from megahit_tpu_torch.__main__ import main as cli
 
@@ -281,23 +414,28 @@ def _run_cli(argv: list[str]) -> None:
 
 
 def phase_fixtures() -> None:
-    out = os.path.join(DATA, "fixtures")
-    t0 = time.monotonic()
-    _run_cli(["--test", "--k-list", "21", "--device", "cuda", "-f",
-              "-o", os.path.join(out, "cuda")])
-    t1 = time.monotonic()
-    _run_cli(["--test", "--k-list", "21", "--device", "cpu", "-f",
-              "-o", os.path.join(out, "cpu")])
-    t2 = time.monotonic()
-    with open(os.path.join(out, "cuda", "final.contigs.fa"), "rb") as f:
-        a = f.read()
-    with open(os.path.join(out, "cpu", "final.contigs.fa"), "rb") as f:
-        b = f.read()
-    if a != b or not a:
-        fail("fixture final.contigs.fa differs between cuda and cpu")
-    log(f"[5] fixtures --k-list 21: cuda ({t1 - t0:.1f}s) and cpu "
-        f"({t2 - t1:.1f}s) final.contigs.fa byte-identical "
-        f"({a.count(b'>')} contigs)")
+    for tag, name, flags in (
+            ("--k-list 21", "k21", ["--k-list", "21"]),
+            ("default ladder", "ladder", []),
+            ("default ladder --no-local", "ladder_no_local", ["--no-local"])):
+        out = os.path.join(DATA, "fixtures", name)
+        t0 = time.monotonic()
+        _run_cli(["--test", "--device", "cuda", "-f",
+                  "-o", os.path.join(out, "cuda")] + flags)
+        t1 = time.monotonic()
+        _run_cli(["--test", "--device", "cpu", "-f",
+                  "-o", os.path.join(out, "cpu")] + flags)
+        t2 = time.monotonic()
+        with open(os.path.join(out, "cuda", "final.contigs.fa"), "rb") as f:
+            a = f.read()
+        with open(os.path.join(out, "cpu", "final.contigs.fa"), "rb") as f:
+            b = f.read()
+        if a != b or not a:
+            fail(f"fixture final.contigs.fa ({tag}) differs between cuda "
+                 "and cpu")
+        log(f"[5] fixtures {tag}: cuda ({t1 - t0:.1f}s) and cpu "
+            f"({t2 - t1:.1f}s) final.contigs.fa byte-identical "
+            f"({a.count(b'>')} contigs)")
 
 
 def _fasta_lengths(path: str) -> list[int]:
@@ -327,11 +465,36 @@ def _log_stages(tag: str, out: str) -> None:
         log(f"{tag}   stage {name}: {secs:.2f}s")
 
 
-def phase_main_path(torch, data) -> dict:
-    from megahit_tpu_torch.core import kernels
+def _device_profile(tag: str, prof, wall: float) -> None:
+    ops = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in ops) / 1e6
+    log(f"{tag} device busy {busy:.3f}s of {wall:.1f}s wall "
+        f"(idle share {1 - busy / wall:.1%}), "
+        f"{sum(e.count for e in ops)} device ops")
+    for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"{tag}   device {e.self_device_time_total / 1e3:.2f} ms "
+            f"x{e.count}: {e.key[:70]}")
+
+
+def _check_contigs(tag: str, out: str, data) -> None:
     from megahit_tpu_torch.graph.output import contig_stats
 
     import numpy as np
+
+    lens = _fasta_lengths(os.path.join(out, "final.contigs.fa"))
+    st = contig_stats(np.array(lens, dtype=np.int64))
+    genome_len = sum(_fasta_lengths(data["genome"]))
+    log(f"{tag} contigs: {st['n']}, total {st['total']} bp (genome "
+        f"{genome_len} bp), N50 {st['n50']} bp, max {st['max']} bp")
+    if not 0.9 * genome_len <= st["total"] <= 1.1 * genome_len:
+        fail(f"{tag} contig total {st['total']} not within 10% of "
+             f"{genome_len}")
+    if st["n50"] <= 10_000:
+        fail(f"{tag} N50 {st['n50']} <= 10 kbp")
+
+
+def phase_main_path(torch, data) -> dict:
+    from megahit_tpu_torch.core import kernels
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -351,27 +514,11 @@ def phase_main_path(torch, data) -> dict:
     peak = torch.cuda.max_memory_allocated()
     log(f"[6] isolate --k-list 21 on cuda: {wall:.1f}s wall, "
         f"launches {launches}, peak device memory {peak / 2**30:.2f} GiB")
-    ops = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    busy = sum(e.self_device_time_total for e in ops) / 1e6
-    log(f"[6] device busy {busy:.3f}s of {wall:.1f}s wall "
-        f"(idle share {1 - busy / wall:.1%}), "
-        f"{sum(e.count for e in ops)} device ops")
-    for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:6]:
-        log(f"[6]   device {e.self_device_time_total / 1e3:.2f} ms "
-            f"x{e.count}: {e.key[:70]}")
+    _device_profile("[6]", prof, wall)
     _log_stages("[6]", out)
-    lens = _fasta_lengths(os.path.join(out, "final.contigs.fa"))
-    st = contig_stats(np.array(lens, dtype=np.int64))
-    genome_len = sum(_fasta_lengths(data["genome"]))
-    log(f"[6] contigs: {st['n']}, total {st['total']} bp (genome "
-        f"{genome_len} bp), N50 {st['n50']} bp, max {st['max']} bp")
+    _check_contigs("[6]", out, data)
     if min(launches.values()) <= 0:
         fail(f"a kernel was not launched on the main path: {launches}")
-    if not 0.9 * genome_len <= st["total"] <= 1.1 * genome_len:
-        fail(f"contig total {st['total']} not within 10% of "
-             f"{genome_len}")
-    if st["n50"] <= 10_000:
-        fail(f"N50 {st['n50']} <= 10 kbp")
     return launches
 
 
@@ -395,6 +542,59 @@ def phase_cpu_match(data) -> None:
     _log_stages("[7]", out)
 
 
+def phase_ladder(torch, data) -> dict:
+    """The isolate with the default k list on cuda, with every kernel
+    launch counter set to 0 just before and read just after."""
+    from megahit_tpu_torch.core import kernels
+
+    from torch.profiler import ProfilerActivity, profile
+
+    out = os.path.join(DATA, "isolate_ladder")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.canonical_all_kmers.launches = 0
+    kernels.count_sorted_runs.launches = 0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        _run_cli(["-1", data["r1"], "-2", data["r2"], "--device", "cuda",
+                  "-f", "-o", out])
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    launches = {"canonical_all_kmers": kernels.canonical_all_kmers.launches,
+                "count_sorted_runs": kernels.count_sorted_runs.launches}
+    peak = torch.cuda.max_memory_allocated()
+    with open(os.path.join(out, "log")) as fh:
+        text = fh.read()
+    klist = re.search(r"k list: (\S+)", text).group(1)
+    rungs = re.findall(r"stage \d+ \(stage_assemble (\d+)\)", text)
+    early = re.search(r"early termination at k=(\d+)", text)
+    log(f"[8] isolate, default k list on cuda: {wall:.1f}s wall, "
+        f"launches {launches}, peak device memory {peak / 2**30:.2f} GiB")
+    log(f"[8] k list {klist}; rungs assembled: {','.join(rungs)}"
+        + (f"; early termination at k={early.group(1)}" if early else
+           "; no early termination"))
+    _device_profile("[8]", prof, wall)
+    _log_stages("[8]", out)
+    _check_contigs("[8]", out, data)
+    if min(launches.values()) <= 0:
+        fail(f"a kernel was not launched on the ladder: {launches}")
+    out_cpu = os.path.join(DATA, "isolate_ladder_cpu")
+    t0 = time.monotonic()
+    _run_cli(["-1", data["r1"], "-2", data["r2"], "--device", "cpu", "-f",
+              "-o", out_cpu])
+    wall = time.monotonic() - t0
+    with open(os.path.join(out, "final.contigs.fa"), "rb") as f:
+        a = f.read()
+    with open(os.path.join(out_cpu, "final.contigs.fa"), "rb") as f:
+        b = f.read()
+    if a != b:
+        fail("isolate default-ladder final.contigs.fa differs between cpu "
+             "and cuda")
+    log(f"[8] isolate, default k list on cpu: {wall:.1f}s wall, "
+        "final.contigs.fa byte-identical to the cuda run")
+    _log_stages("[8] cpu", out_cpu)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -416,17 +616,21 @@ def main() -> int:
     phase_build()
     data = phase_data()
     kern = phase_kernels(torch, data)
+    sort_kern = phase_sortnet(torch)
     phase_fixtures()
     launches = phase_main_path(torch, data)
     phase_cpu_match(data)
+    ladder = phase_ladder(torch, data)
     for kd in kern:
         kd["launches"] = launches[kd["name"]]
+        kd["ladder_launches"] = ladder[kd["name"]]
+    kern += sort_kern
     mods = sorted(m for m in sys.modules
                   if m == "jax" or m.startswith("jax.")
                   or m == "megahit_tpu" or m.startswith("megahit_tpu."))
     if mods:
         fail(f"JAX or the JAX package was imported: {mods[:5]}")
-    log(f"[8] total {time.monotonic() - t0:.1f}s")
+    log(f"[9] total {time.monotonic() - t0:.1f}s")
     print(card)
     print(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {

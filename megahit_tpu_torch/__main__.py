@@ -1,12 +1,13 @@
 """megahit_tpu_torch command line: MEGAHIT-compatible flags.
 
 Usage mirrors the reference driver (src/megahit:38-104):
-  python -m megahit_tpu_torch -1 a_1.fq -2 a_2.fq -r se.fa -o out --k-list 21
-  python -m megahit_tpu_torch --test --k-list 21 --device cpu
+  python -m megahit_tpu_torch -1 a_1.fq -2 a_2.fq -r se.fa -o out
+  python -m megahit_tpu_torch --12 interleaved.fa.gz -o out --k-list 21,41,61
+  python -m megahit_tpu_torch --test --device cpu
 
 Runs on the GPU (``--device cuda``, the default) unless ``--device cpu``
-is given; without a GPU it stops with an error. One k per run: the
-multi-k ladder is not ported yet. Counterpart of megahit_tpu/__main__.py.
+is given; without a GPU it stops with an error. Counterpart of
+megahit_tpu/__main__.py.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ def make_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="megahit_tpu_torch",
         description="GPU metagenome assembler in PyTorch/CUDA "
-        "(capabilities of MEGAHIT; one k per run)",
+        "(capabilities of MEGAHIT)",
     )
     g = p.add_argument_group("input options")
     g.add_argument("-1", dest="pe1", action="append", default=[],
@@ -240,10 +241,11 @@ def main(argv=None) -> int:
     )
     if args.k_list:
         opt.k_list = [int(x) for x in args.k_list.split(",")]
+        opt.auto_k = False
     if args.presets:
         # the reference applies presets in check_and_correct_option,
-        # AFTER parsing: a preset overrides an explicit --k-list
-        # (src/megahit:491-505)
+        # AFTER parsing: a preset overrides an explicit --k-list and
+        # re-enables auto_k read-length pruning (src/megahit:491-505)
         opt.apply_preset(args.presets)
     ml = args.merge_level.split(",")
     opt.merge_len, opt.merge_similar = int(ml[0]), float(ml[1])
@@ -260,6 +262,7 @@ def main(argv=None) -> int:
         opt.pe2, opt.se = libs["pe2"], libs["se"]
         if args.k_list is None:
             opt.k_list = [21, 39, 59, 79]
+            opt.auto_k = False
 
     os.makedirs(opt.out_dir, exist_ok=True)
     setup_logging(

@@ -1,6 +1,8 @@
-"""The count hot path's two kernels, written by hand for Hopper.
+"""The count hot path's two kernels, written by hand for Hopper, and the
+build and loading of every CUDA source of the port (the two merge
+kernels' wrappers live in sortnet.py).
 
-Each kernel has three parts here:
+Each kernel has three parts:
 
 - a plain PyTorch version of the same function (``*_plain``): the CPU
   tests use it, and ``chip_smoke.py`` holds the kernel to it on the card;
@@ -36,7 +38,10 @@ BLOCK_Q = 2048
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)),
                          "_build")
-SOURCES = ("canonical_kmers", "count_runs")
+SOURCES = ("canonical_kmers", "count_runs", "merge_pairs", "merge_path")
+# headers a source includes (a change rebuilds it)
+HEADERS = {"merge_pairs": ("merge_common.cuh",),
+           "merge_path": ("merge_common.cuh",)}
 # count_sorted_runs indexes rows with 32-bit ints (its last block of 1024
 # threads must not overflow them)
 MAX_ROWS = 2 ** 31 - 1024
@@ -123,8 +128,10 @@ def build_kernels(verbose: bool = False) -> dict[str, float]:
     for name in SOURCES:
         src = os.path.join(_CSRC, f"{name}.cu")
         so = _so_path(name)
-        if os.path.exists(so) and os.path.getmtime(so) >= \
-                os.path.getmtime(src):
+        deps = [src] + [os.path.join(_CSRC, h)
+                        for h in HEADERS.get(name, ())]
+        if os.path.exists(so) and os.path.getmtime(so) >= max(
+                os.path.getmtime(d) for d in deps):
             continue
         tmp = f"{so}.tmp.{os.getpid()}"
         cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
@@ -151,20 +158,31 @@ def build_kernels(verbose: bool = False) -> dict[str, float]:
     return secs
 
 
+_vp, _ll, _ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+# launch functions and their argument types, per source
+_LAUNCH = {
+    "canonical_kmers": {"canonical_all_kmers_launch":
+                        [_vp, _vp, _ll, _ci, _vp]},
+    "count_runs": {"count_sorted_runs_launch":
+                   [ctypes.POINTER(_vp), _ci, _ci, _ci, _vp, _vp, _vp, _vp,
+                    _vp]},
+    "merge_pairs": {"merge_pairs_launch":
+                    [_vp, _vp, _vp, _vp, _ll, _ci, _vp]},
+    "merge_path": {"merge_path_launch":
+                   [_vp, _vp, _vp, _vp, _ll, _ci, _ci, _vp],
+                   "merge_path_splits_launch":
+                   [_vp, _vp, _vp, _vp, _ll, _ci, _ci, _vp]},
+}
+
+
 def _lib(name: str) -> ctypes.CDLL:
     with _build_lock:
         if name not in _libs:
             build_kernels()
             lib = ctypes.CDLL(_so_path(name))
-            vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-            if name == "canonical_kmers":
-                lib.canonical_all_kmers_launch.restype = ci
-                lib.canonical_all_kmers_launch.argtypes = [
-                    vp, vp, ll, ci, vp]
-            else:
-                lib.count_sorted_runs_launch.restype = ci
-                lib.count_sorted_runs_launch.argtypes = [
-                    ctypes.POINTER(vp), ci, ci, ci, vp, vp, vp, vp, vp]
+            for fn, argtypes in _LAUNCH[name].items():
+                getattr(lib, fn).restype = _ci
+                getattr(lib, fn).argtypes = argtypes
             _libs[name] = lib
         return _libs[name]
 

@@ -24,7 +24,8 @@ device its whole-graph passes run on. On CUDA the tip and simple-path
 passes are torch ops on that device; on the CPU they are the host
 engine's sparse walks and native chain walks (``host_graph_passes``).
 
-Counterpart of megahit_tpu/graph/sdbg.py (the in-memory builder only).
+Counterpart of megahit_tpu/graph/sdbg.py (the in-memory builders; the
+out-of-core bucketed builder is not ported).
 """
 
 from __future__ import annotations
@@ -676,6 +677,153 @@ def _finalize_sdbg(keys: np.ndarray, mults: np.ndarray, k: int,
     log.debug("sdbg k=%d: %d windows -> %d edges (cap %d)",
               k, n_windows, len(edges), sdbg.size)
     return sdbg
+
+
+def window_edge_multiset(
+    flat_codes,
+    starts: np.ndarray,
+    seq_mults: np.ndarray,
+    k: int,
+    batch_windows: int = 1 << 21,
+    device="cuda",
+) -> tuple[np.ndarray, np.ndarray]:
+    """Raw both-strand edge multiset (keys, mults) of all k-windows of a
+    sequence pool, each window with its sequence's multiplicity, as host
+    arrays: the pre-finalize half of the graph build, so callers can
+    union several edge sources into one _finalize_sdbg pass. Windows are
+    extracted on `device` one chunk at a time; the reverse complements
+    are taken on the host (native per-row transform)."""
+    from .counter import _chunks, as_pool
+
+    device = resolve_device(device)
+    pool = as_pool(flat_codes)
+    seq_mults = np.asarray(seq_mults, dtype=np.int32)
+    chunk = max(1 << 16, (batch_windows + 15) & ~15)
+    chunks_k, chunks_m = [], []
+    for lo, words, vm in _chunks(pool, starts, k, chunk):
+        fwd_np = kmerops.to_numpy(kmerops.extract_all_kmers(
+            kmerops.to_torch(words, device), k))[vm]
+        chunks_k.append(fwd_np)
+        chunks_k.append(kmerops.revcomp_kmers(fwd_np, k))
+        posv = np.flatnonzero(vm) + lo
+        mm = seq_mults[np.searchsorted(starts, posv, side="right") - 1]
+        chunks_m.append(mm)
+        chunks_m.append(mm)
+    keys = np.concatenate(chunks_k, axis=0)
+    mults = np.concatenate(chunks_m, axis=0).astype(np.int32)
+    return keys, mults
+
+
+def build_sdbg_device_resident(
+    flat_codes,
+    starts: np.ndarray,
+    seq_mults: np.ndarray,
+    k: int,
+    edge_keys: np.ndarray | None = None,
+    edge_counts: np.ndarray | None = None,
+    batch_windows: int = 1 << 21,
+    device="cuda",
+) -> Sdbg:
+    """Window multiset -> SdBG with the multiset resident on `device`
+    from extraction to dedup; only the deduplicated edges come back.
+
+    The 2-bit pool goes up one chunk at a time with its packed window
+    validity and the chunk's sequence starts and multiplicities; windows
+    are extracted, masked, reverse-complemented, sorted and max-deduped
+    on the device. Invalid windows ride as all-ones sentinel rows with
+    multiplicity -1 and sort into one tail group that is dropped; the
+    max with -1 keeps a real all-T key (k % 16 == 0) exact. Edge-file
+    inputs (iterate output) join as one upload with their reverse
+    complements. Same edges and multiplicities as window_edge_multiset +
+    _finalize_sdbg except that, as in megahit_tpu, the multiplicities
+    are not clipped to KMAX_MUL here."""
+    from .counter import _chunks, as_pool, num_windows
+
+    device = resolve_device(device)
+    log = get_logger()
+    w = kmerops.words_per_kmer(k)
+    n_bases = int(starts[-1])
+    pool = as_pool(flat_codes)
+    n = num_windows(starts, k)
+    if n_bases < k or n == 0:
+        if edge_keys is not None and len(edge_keys):
+            return sdbg_from_edges(edge_keys, edge_counts, k, device=device)
+        return Sdbg(k, np.zeros((0, w), np.uint32), np.zeros(0, np.int32),
+                    valid=np.zeros(0, bool), device=device)
+
+    seq_mults = np.asarray(seq_mults, dtype=np.int32)
+    chunk = max(1 << 16, (batch_windows + 15) & ~15)
+    up_bytes = 0
+    dev_keys, dev_mults = [], []
+    for lo, words, vm in _chunks(pool, starts, k, chunk):
+        # every window the chunk's words hold; those past its valid
+        # span are invalid and join the sentinel group
+        span = len(vm)
+        vm_host = np.packbits(vm)
+        # the chunk's sequences, with starts relative to lo
+        j0 = max(int(np.searchsorted(starts, lo, side="right")) - 1, 0)
+        j1 = int(np.searchsorted(starts, lo + span, side="left"))
+        nseq = max(j1 - j0, 1)
+        rel = np.clip(starts[j0:j0 + nseq] - lo, -(2 ** 30), span + 1)
+        msub = seq_mults[j0:j0 + nseq]
+        up_bytes += words.nbytes + vm_host.nbytes + rel.nbytes + msub.nbytes
+        kf, kr, mm = _dev_extract_chunk(
+            kmerops.to_torch(words, device),
+            torch.from_numpy(vm_host).to(device),
+            torch.from_numpy(rel.astype(np.int64)).to(device),
+            torch.from_numpy(msub).to(device), span, k)
+        dev_keys += [kf, kr]
+        dev_mults += [mm, mm]
+    keys = torch.cat(dev_keys, dim=0)
+    mults = torch.cat(dev_mults, dim=0)
+    del dev_keys, dev_mults
+    if edge_keys is not None and len(edge_keys):
+        ek = kmerops.to_torch(edge_keys, device)
+        ec = torch.from_numpy(
+            np.asarray(edge_counts, dtype=np.int32)).to(device)
+        up_bytes += np.asarray(edge_keys).nbytes + ec.numel() * 4
+        keys = torch.cat([keys, ek, kmerops.revcomp_kmers(ek, k)], dim=0)
+        mults = torch.cat([mults, ec, ec])
+
+    skeys, smult = kmerops.sort_keys_with_payload(keys, mults)
+    del keys, mults
+    head, gmult = _dedup_sorted_max(skeys, smult)
+    # gather the head rows (the deduplicated edges) on the device: only
+    # the edge set crosses to the host
+    edges_host = kmerops.to_numpy(skeys[head])
+    mult_host = gmult[head].cpu().numpy()
+    down_bytes = edges_host.nbytes + mult_host.nbytes
+    # drop the sentinel tail group (invalid windows): the all-ones key
+    # with mult < 0 (a real all-T key keeps mult >= 1)
+    if len(mult_host) and mult_host[-1] < 0:
+        edges_host, mult_host = edges_host[:-1], mult_host[:-1]
+    log.info(
+        "device-resident build k=%d: %d windows -> %d edges; transfers "
+        "up %.1f MB / down %.1f MB", k - 1, n, len(edges_host),
+        up_bytes / 1e6, down_bytes / 1e6)
+    return _make_sdbg(np.ascontiguousarray(edges_host),
+                      mult_host.astype(np.int32), k, device=device)
+
+
+def _dev_extract_chunk(sub, vm_packed, rel_starts, rel_mults, span: int,
+                       k: int):
+    """One chunk of the device-resident build: extract the windows,
+    mask invalid ones to all-ones sentinels, reverse-complement, and
+    look up each window's sequence multiplicity (-1 when invalid), all
+    on the tensors' device. rel_starts are the chunk-relative sequence
+    starts, ascending."""
+    fwd = kmerops.extract_all_kmers(sub, k)[:span]
+    bitpos = torch.arange(span, dtype=torch.int64, device=sub.device)
+    vm = ((vm_packed[bitpos >> 3].to(torch.int64)
+           >> (7 - (bitpos & 7))) & 1).bool()
+    kf = torch.where(vm[:, None], fwd, kmerops.M32)
+    kr = torch.where(vm[:, None], kmerops.revcomp_kmers(fwd, k),
+                     kmerops.M32)
+    si = torch.searchsorted(rel_starts, bitpos, right=True) - 1
+    mm = torch.where(
+        vm, rel_mults[torch.clamp(si, 0, rel_mults.shape[0] - 1)],
+        torch.tensor(-1, dtype=torch.int32, device=sub.device))
+    return kf, kr, mm
 
 
 def _make_sdbg(edges, mult, k, rc_idx=None, device="cuda") -> Sdbg:

@@ -1,13 +1,15 @@
-"""The checkpointed one-k assembly pipeline.
+"""The checkpointed multi-k assembly pipeline.
 
-Re-expression of the reference Python driver (src/megahit:969-1033
-main, :250-280 Checkpoint) for a single k: build read lib -> k graph
-(solid + mercy edges) -> assemble -> merge final contigs. Stage
-artifacts live in out/tmp/k{K}/ and out/intermediate_contigs/ in the
-same formats as megahit_tpu's, so runs resume (`--continue`) at stage
-granularity. The multi-k ladder (local assembly, iterate, the contig
-union) is not ported yet; Options.validate refuses a k list of more
-than one k.
+Re-expression of the reference Python driver (src/megahit:969-1033 main,
+:996-1019 pipeline loop, :250-280 Checkpoint): build read lib -> k_min
+graph (solid + mercy edges) -> assemble -> for each next k: [local
+assembly] -> iterate junction edges -> build graph from contigs+edges ->
+assemble -> merge final contigs. Stage artifacts live in out/tmp/k{K}/
+and out/intermediate_contigs/ in the same formats as megahit_tpu's, so
+runs resume (`--continue`) at stage granularity, mid-ladder included.
+
+Not ported yet: the out-of-core (bucketed) graph build, which megahit_tpu
+takes when a rung's multiset exceeds the -m budget; here that raises.
 
 Counterpart of megahit_tpu/pipeline/driver.py.
 """
@@ -20,16 +22,28 @@ import time
 
 import numpy as np
 
+from ..core import kmerops, packing
+from ..graph import iterate as it
 from ..graph.counter import count_canonical_kmers
 from ..graph.mercy import find_mercy_edges
-from ..graph.sdbg import Sdbg, sdbg_from_edges
-from ..io.contig_io import ContigRecord, read_contigs, write_contigs
+from ..graph.sdbg import (
+    Sdbg, _finalize_sdbg, build_sdbg_device_resident, sdbg_from_edges,
+    window_edge_multiset,
+)
+from ..io.contig_io import (
+    FLAG_LOOP, FLAG_STANDALONE, ContigRecord, read_contigs, write_contigs,
+)
 from ..io.lib import SequenceLib, build_lib
 from ..pipeline.assemble import AssembleOptions, assemble
 from ..pipeline.options import Options
 from ..utils.device import resolve_device
 from ..utils.log import get_logger
 from ..utils.timers import PhaseTimer, max_rss_mb
+
+
+class EarlyTerminate(Exception):
+    def __init__(self, k):
+        self.k = k
 
 
 class Checkpoint:
@@ -125,17 +139,25 @@ class Pipeline:
             lib.num_seqs, lib.num_bases, lib.max_len,
         )
 
-    def _batch_windows(self) -> int:
-        """Count batch size from the -m memory budget (reference memory
-        autodetect, src/megahit:596-609: default 0.9 x RAM)."""
+    def _memory_budget(self) -> int:
+        """The -m budget in bytes (reference memory autodetect,
+        src/megahit:596-609: default 0.9 x RAM)."""
         m = self.opt.memory
         if m <= 1:
-            budget = m * os.sysconf("SC_PAGE_SIZE") * os.sysconf(
-                "SC_PHYS_PAGES")
-        else:
-            budget = m
+            return int(m * os.sysconf("SC_PAGE_SIZE")
+                       * os.sysconf("SC_PHYS_PAGES"))
+        return int(m)
+
+    def _batch_windows(self) -> int:
+        """Count batch size from the -m memory budget."""
         # ~64 B/window peak across extraction + sort working sets
-        return int(max(1 << 20, min(1 << 26, int(budget) // 64)))
+        return int(max(1 << 20, min(1 << 26, self._memory_budget() // 64)))
+
+    def _budget_rows(self, w: int) -> int:
+        """Max edge-multiset rows resident at once, from the -m budget
+        (the reference AdjustMemory role, base_engine.cpp:54-141):
+        ~3 copies of (w+1) uint32 words live across sort working sets."""
+        return int(max(1 << 14, self._memory_budget() // (12 * (w + 1))))
 
     def _load_lib(self) -> SequenceLib:
         if self.lib is None:
@@ -218,21 +240,133 @@ class Pipeline:
         write_contigs(cp + ".bubble_seq.fa", res.bubbles)
 
     def _build_sdbg_for_k(self, k: int) -> Sdbg:
-        """The k graph from the first-graph edge file (the
-        sdbg_from_edges branch of megahit_tpu's builder; reference
-        seq2sdbg --input_prefix)."""
+        """Union the k-graph inputs (reference seq2sdbg Initialize,
+        seq_to_sdbg.cpp:359-528): edge files + contigs + bubble + addi +
+        local from the previous k. On cuda the window multiset stays on
+        the card through the dedup (build_sdbg_device_resident); on the
+        CPU it is window_edge_multiset + _finalize_sdbg, the choice by
+        backend megahit_tpu makes."""
         km = k + 1  # edge length
+        dev = self.device
         prefix = self.graph_prefix(k)
         if os.path.exists(prefix + ".sdbg.npz"):
-            return Sdbg.load(prefix + ".sdbg.npz", device=self.device)
+            return Sdbg.load(prefix + ".sdbg.npz", device=dev)
         edge_file = prefix + ".edges.npz"
+        edge_keys = edge_counts = None
+        n_edge_inputs = 0
         if os.path.exists(edge_file):
             z = np.load(edge_file)
-            return sdbg_from_edges(z["keys"], z["counts"], km,
-                                   device=self.device)
+            edge_keys, edge_counts = z["keys"], z["counts"]
+            n_edge_inputs = len(edge_keys)
+
+        seqs: list[np.ndarray] = []
+        mults: list[float] = []
+        k_from = self._prev_k(k)
+        if k_from is not None:
+            cp = self.contig_prefix(k_from)
+            # EarlyTerminate when the previous round produced no NEW
+            # information - no iterate edges, no addi, no local - even
+            # if contigs exist (reference build_graph file_size check,
+            # src/megahit:816-840: contigs/bubbles are not counted)
+            new_info = n_edge_inputs > 0 or any(
+                os.path.exists(cp + name) and os.path.getsize(cp + name)
+                for name in (".addi.fa", ".local.fa")
+            )
+            if not new_info:
+                raise EarlyTerminate(k_from)
+            for name, extend in (
+                (".contigs.fa", True), (".bubble_seq.fa", False),
+                (".addi.fa", False), (".local.fa", False),
+            ):
+                path = cp + name
+                if not os.path.exists(path):
+                    continue
+                for r in read_contigs(
+                        path, min_len=km,
+                        extend_loop_k=(k_from, k) if extend else None):
+                    seqs.append(r.codes)
+                    mults.append(r.multi)
+            if n_edge_inputs == 0 and not seqs:
+                raise EarlyTerminate(k_from)
+
+        # estimated union multiset size against the -m budget
+        n_window_rows = 2 * sum(max(len(s) - km + 1, 0) for s in seqs)
+        est_rows = n_window_rows + 2 * n_edge_inputs
+        budget_rows = self._budget_rows(kmerops.words_per_kmer(km))
+        if est_rows > budget_rows:
+            raise ValueError(
+                f"k={k}: est_rows {est_rows} > budget_rows {budget_rows} "
+                "(-m): out-of-core build not ported yet "
+                "(megahit_tpu/graph/bucketed.py); raise -m")
+
+        if seqs:
+            flat, starts = packing.pack_many(seqs)
+            seq_mults = np.floor(np.asarray(mults) + 0.5).astype(np.int32)
+            if dev.type == "cuda":
+                return build_sdbg_device_resident(
+                    flat, starts, seq_mults, km, edge_keys=edge_keys,
+                    edge_counts=edge_counts,
+                    batch_windows=self._batch_windows(), device=dev)
+            keys, kmults = window_edge_multiset(flat, starts, seq_mults, km,
+                                                device=dev)
+            if edge_keys is not None and len(edge_keys):
+                # union the contig-window multiset with the edge-file
+                # inputs BEFORE the single finalize (sort + join) pass
+                rc = kmerops.revcomp_kmers(
+                    np.ascontiguousarray(edge_keys, dtype=np.uint32), km)
+                keys = np.concatenate([keys, edge_keys, rc], axis=0)
+                kmults = np.concatenate(
+                    [kmults, edge_counts, edge_counts]).astype(np.int32)
+            return _finalize_sdbg(keys, kmults, km, n_windows=len(keys),
+                                  device=dev)
+        if edge_keys is not None:
+            return sdbg_from_edges(edge_keys, edge_counts, km, device=dev)
         return sdbg_from_edges(
             np.zeros((0, 1), np.uint32), np.zeros(0, np.int32), km,
-            device=self.device)
+            device=dev)
+
+    def _prev_k(self, k: int) -> int | None:
+        ks = self.opt.k_list
+        i = ks.index(k)
+        return ks[i - 1] if i > 0 else None
+
+    def stage_iterate(self, cur_k: int, next_k: int) -> None:
+        """Junction edge seeding (reference iterate(),
+        src/megahit:850-862)."""
+        step = next_k - cur_k
+        lib = self._load_lib()
+        cp = self.contig_prefix(cur_k)
+        contigs: list[np.ndarray] = []
+        muls: list[float] = []
+        # the iterate reader discards loop AND standalone contigs
+        # (reference AsyncContigReader, async_sequence_reader.h:80):
+        # they cannot be extended by junction k-mers
+        skip = FLAG_LOOP | FLAG_STANDALONE
+        for name in (".contigs.fa", ".bubble_seq.fa"):
+            if os.path.exists(cp + name):
+                for r in read_contigs(cp + name):
+                    if r.flag & skip:
+                        continue
+                    contigs.append(r.codes)
+                    muls.append(r.multi)
+        index = it.build_flank_index(contigs, muls, cur_k, step)
+        keys, counts = it.find_next_kmers(lib.pool, lib.starts, index,
+                                          device=self.device)
+        np.savez(self.graph_prefix(next_k) + ".edges.npz",
+                 keys=keys, counts=counts)
+
+    def stage_local(self, cur_k: int, next_k: int) -> None:
+        """Paired-end local assembly (reference local_assemble(),
+        src/megahit:906-914)."""
+        from ..localasm.local_assemble import run_local_assembly
+
+        lib = self._load_lib()
+        cp = self.contig_prefix(cur_k)
+        contigs = read_contigs(cp + ".contigs.fa") \
+            if os.path.exists(cp + ".contigs.fa") else []
+        out = run_local_assembly(lib, contigs, local_kmax=next_k,
+                                 device=self.device)
+        write_contigs(cp + ".local.fa", out)
 
     def stage_merge_final(self, final_k: int) -> None:
         """cat *.final.contigs.fa + k_max contigs, filter by length
@@ -291,10 +425,28 @@ class Pipeline:
                         resume=o.continue_mode)
 
         cp.run(self.stage_build_lib)
+        max_len = self._load_lib().max_len
+        if o.drop_large_k(max_len):
+            self.log.info("k-max reset to %d (max read len %d)",
+                          o.k_max, max_len)
         self.log.info("k list: %s", ",".join(map(str, o.k_list)))
+
         cp.run(self.stage_first_graph)
         cp.run(self.stage_assemble, o.k_min)
-        cp.run(self.stage_merge_final, o.k_max)
+
+        cur_k = o.k_min
+        final_k = o.k_max
+        try:
+            for next_k in o.k_list[1:]:
+                if not o.no_local:
+                    cp.run(self.stage_local, cur_k, next_k)
+                cp.run(self.stage_iterate, cur_k, next_k)
+                cp.run(self.stage_assemble, next_k)
+                cur_k = next_k
+        except EarlyTerminate as et:
+            self.log.info("early termination at k=%d", et.k)
+            final_k = et.k
+        cp.run(self.stage_merge_final, final_k)
 
         if not o.keep_tmp_files and os.path.exists(self.tmp_dir):
             shutil.rmtree(self.tmp_dir)

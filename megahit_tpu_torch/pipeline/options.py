@@ -3,8 +3,8 @@
 Mirrors the reference driver's option handling (src/megahit:158-247
 `Options`, :486-568 `check_and_correct_option`, :491-505 presets),
 re-expressed declaratively. Counterpart of
-megahit_tpu/pipeline/options.py; this port runs one k per assembly (the
-multi-k ladder is not ported yet) and records the device it runs on.
+megahit_tpu/pipeline/options.py; this port also records the device it
+runs on.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ class Options:
     k_min: int = -1  # set from k_list
     k_max: int = -1
     k_step: int = -1
+    auto_k: bool = True
     min_count: int = 2
     # graph cleaning
     prune_level: int = 2
@@ -58,13 +59,17 @@ class Options:
 
     def apply_preset(self, preset: str) -> None:
         """Reference presets (src/megahit:491-505)."""
+        # presets re-enable auto_k so the long ladder is pruned to the
+        # library read length (src/megahit:492 "opt.auto_k = True")
         if preset == "meta-sensitive":
             self.min_count = 1
             self.k_list = [21, 29, 39, 49, 59, 69, 79, 89, 99, 109, 119,
                            129, 141]
+            self.auto_k = True
         elif preset == "meta-large":
             self.min_count = 1
             self.k_list = [27, 37, 47, 57, 67, 77, 87, 97, 107, 117, 127]
+            self.auto_k = True
         else:
             raise ValueError(f"invalid preset: {preset}")
 
@@ -86,11 +91,6 @@ class Options:
                 raise ValueError(
                     f"k-step between {a} and {b} exceeds 28"
                 )
-        if len(self.k_list) > 1:
-            raise ValueError(
-                "multi-k assembly (k list "
-                f"{','.join(map(str, self.k_list))}) is not ported yet; "
-                "pass a single k, e.g. --k-list 21")
         self.k_min = self.k_list[0]
         self.k_max = self.k_list[-1]
         if self.min_count == 1:
@@ -103,6 +103,18 @@ class Options:
             raise ValueError("no input files given (-1/-2/--12/-r)")
         if len(self.pe1) != len(self.pe2):
             raise ValueError("-1 and -2 must pair up")
+
+    def drop_large_k(self, max_read_len: int) -> bool:
+        """Drop k > max_read_len + 20 (reference set_max_k_by_lib,
+        src/megahit:756-768)."""
+        if not self.auto_k or len(self.k_list) == 1:
+            return False
+        new = [k for k in self.k_list if k < max_read_len + 20]
+        if not new or new == self.k_list:
+            return False
+        self.k_list = new
+        self.k_min, self.k_max = new[0], new[-1]
+        return True
 
     def save(self, path: str) -> None:
         with open(path, "w") as fh:

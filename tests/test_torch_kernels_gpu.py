@@ -73,3 +73,55 @@ def test_wrappers_refuse_bad_cuda_operands():
     with pytest.raises(ValueError):
         tkern.canonical_all_kmers(
             torch.zeros(64, dtype=torch.int32, device="cuda")[::2], 21)
+
+
+def _sorted_runs(rng, n, run, dup):
+    """48-bit (hi int32, lo int16) planes on the card, sorted in runs of
+    `run` keys; dup=True is the duplicate-heavy case."""
+    from megahit_tpu_torch.core import sortnet
+
+    hi = rng.integers(0, 7 if dup else 2 ** 32, n).astype(np.uint32)
+    lo = (rng.integers(0, 3 if dup else 2 ** 12, n) << 4).astype(np.uint16)
+    key = (hi.astype(np.int64) << 16) | lo
+    key = np.sort(key.reshape(-1, run), axis=1).reshape(-1)
+    return sortnet.unpack_key(torch.from_numpy(key).cuda())
+
+
+@pytest.mark.parametrize("n,run,dup", [(1 << 20, 2048, False),
+                                       (1 << 20, 4096, True),
+                                       (8192, 512, False)])
+def test_merge_pairs_kernel_matches_plain(n, run, dup):
+    from megahit_tpu_torch.core import sortnet
+
+    hi, lo = _sorted_runs(np.random.default_rng(run), n, run, dup)
+    before = sortnet.merge_pairs.launches
+    gh, gl = sortnet.merge_pairs(hi, lo, run)
+    assert sortnet.merge_pairs.launches == before + 1
+    ph, pl = sortnet.merge_pairs_plain(hi, lo, run)
+    assert torch.equal(gh, ph) and torch.equal(gl, pl)
+
+
+@pytest.mark.parametrize("n,run,tile,dup", [(1 << 20, 1 << 16, 8192, False),
+                                            (1 << 20, 1 << 19, 8192, True),
+                                            (8192, 1024, 1024, False)])
+def test_merge_path_kernel_matches_plain(n, run, tile, dup):
+    from megahit_tpu_torch.core import sortnet
+
+    hi, lo = _sorted_runs(np.random.default_rng(run + 1), n, run, dup)
+    before = sortnet.merge_path_level.launches
+    gh, gl = sortnet.merge_path_level(hi, lo, run, tile)
+    assert sortnet.merge_path_level.launches == before + 1
+    ph, pl = sortnet.merge_pairs_plain(hi, lo, run)
+    assert torch.equal(gh, ph) and torch.equal(gl, pl)
+
+
+@pytest.mark.parametrize("n,run,tile,dup", [(1 << 20, 1 << 16, 8192, False),
+                                            (1 << 20, 1 << 19, 8192, True),
+                                            (8192, 1024, 256, True)])
+def test_merge_path_splits_kernel_matches_plain(n, run, tile, dup):
+    from megahit_tpu_torch.core import sortnet
+
+    hi, lo = _sorted_runs(np.random.default_rng(run + 2), n, run, dup)
+    got = sortnet.merge_path_splits(hi, lo, run, tile)
+    want = sortnet.merge_path_splits_plain(hi, lo, run, tile)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))

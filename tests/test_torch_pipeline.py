@@ -5,7 +5,7 @@ temporary directory (megahit_tpu on the JAX CPU backend, the port with
 --device cpu). final.contigs.fa must be byte-identical, and so must every
 artifact the run leaves behind; each package also reads the other's
 artifacts. The rest covers the entry points: empty input, --continue,
-the refusal of a multi-k list, the default device, and that the port
+the refusal of an invalid k list, the default device, and that the port
 never imports JAX or megahit_tpu."""
 
 import ast
@@ -144,17 +144,21 @@ def test_continue_resumes(runs, tmp_path):
     assert "stage 2 (stage_assemble 21)" in log
 
 
-@pytest.mark.parametrize("flags", [["--k-list", "21,29"],
-                                   ["--k-min", "21", "--k-max", "41"],
-                                   []])
+@pytest.mark.parametrize("flags", [["--k-list", "21,51"],
+                                   ["--k-min", "21", "--k-max", "42"],
+                                   ["--k-list", "13,21"]])
 def test_multi_k_refused(flags, tmp_path, capsys):
-    """More than one k (the --test default is a four-k ladder) is
-    refused until the ladder is ported."""
+    """A multi-k list runs the ladder (tests/test_torch_ladder.py); one
+    that breaks the reference's k constraints (a step above 28, an even
+    k, k below 15; src/megahit:523-542) is refused before any stage
+    runs, as megahit_tpu refuses it."""
     out = tmp_path / "multi"
     assert torch_main(["--test", "--device", "cpu", "-o", str(out)]
                       + flags) == 1
-    assert "not ported yet" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "exceeds 28" in err or "k must be odd, in [15, 255]" in err
     assert not (out / "final.contigs.fa").exists()
+    assert jax_main(["--test", "-o", str(tmp_path / "jax")] + flags) == 1
 
 
 def test_default_device_is_cuda(tmp_path):
