@@ -14,18 +14,23 @@ Phases, each printing its own lines:
    chip_smoke_data/);
 4. kernel parity on the card, each kernel against its plain PyTorch
    version, exact equality: at the main path's shapes (the isolate's
-   pool at k1=22), at k1 in {32, 42, 56}, and (kernel 2) at an n that is
-   not a multiple of 32768 with sentinel rows and one run spanning many
-   blocks; with each kernel's time, byte bound and library yardstick;
-   and the count's chunked branch against its single shot on the card.
-   Then the two merge kernels (3, 4) through their path, sort_planes:
-   at 2^24 keys (uniform and duplicate-heavy) and at init_run=512,
-   max_tile=1024, n=8192, each sort_planes result against torch.sort,
+   pool at k1=22), at k1 in {32, 42, 56}, and (kernel 2) the main
+   path's n as one run (every tile but the first headless: the longest
+   look-ahead chain) and odd n with sentinel rows and one run spanning
+   many tiles; with each kernel's time, byte bound and library
+   yardstick, and kernel 2's device work per call (torch.profiler: one
+   kernel launch and at most one memset, else the phase fails); and
+   the count's chunked branch against its single shot on
+   the card. Then the two merge kernels (3, 4) through their path,
+   sort_planes: at 2^24 keys (uniform, duplicate-heavy, ascending and
+   descending, so that one run of every pair lies below the other, and
+   all keys equal) and at init_run=512, max_tile=1024, n=8192 (uniform
+   and duplicate-heavy), each sort_planes result against torch.sort,
    then its merge levels one at a time, each against the plain version
    and kernel 4's split search against its plain version; with each
    kernel's launches per call (counters set to 0 just before the
-   uniform 2^24 call), time per launch, byte bound, and torch.sort of
-   the packed key;
+   uniform 2^24 call), time per launch, byte bound, torch.sort of the
+   packed key, and a copy of the 2^24 planes (what one level moves);
 5. the make_test_data fixtures on cuda and on cpu, with --k-list 21,
    with the default ladder, and with the default ladder and --no-local:
    each pair of final.contigs.fa must be byte-identical;
@@ -164,6 +169,21 @@ def _parity_k1(torch, words_np, k1: int) -> int:
     return int((got.long() - want.long()).abs().max())
 
 
+def _device_ops(torch, fn, iters: int = 10) -> list:
+    """(name, device ms, count) per call of each kernel or memset that
+    fn runs on the card (torch.profiler, device activity only)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return [(e.key, e.self_device_time_total / 1e3 / iters, e.count / iters)
+            for e in prof.key_averages() if e.self_device_time_total > 0]
+
+
 def _parity_k2(torch, cols, n_inv: int) -> int:
     from megahit_tpu_torch.core import kernels
 
@@ -238,7 +258,23 @@ def phase_kernels(torch, data) -> list[dict]:
         f"{err2}, {ms2:.3f} ms (plain {plain2:.3f} ms, "
         f"unique_consecutive {lib2:.3f} ms), bound {bound2:.3f} ms "
         f"({bytes2} B), {bound2 / ms2:.1%} of bound")
+    ops = _device_ops(torch, lambda: kernels.count_sorted_runs(cols, n_inv))
+    log("[4] count_sorted_runs per call on the device: " + ", ".join(
+        f"{name[:40]} {ms:.4f} ms x{cnt:g}" for name, ms, cnt in ops))
+    n_set = sum(c for name, _, c in ops if "memset" in name.lower())
+    if sum(c for _, _, c in ops) - n_set != 1 or n_set > 1:
+        fail("count_sorted_runs is not one kernel launch and at most one "
+             f"memset a call: {ops}")
     del words, cols, packed_key
+    # the longest look-ahead chain at the same n: every row one run, so
+    # every tile but the first is headless
+    one = torch.zeros(n, dtype=torch.int32, device="cuda")
+    e = _parity_k2(torch, [one, one], 0)
+    ms_one = cuda_ms(torch, lambda: kernels.count_sorted_runs([one, one], 0))
+    log(f"[4] count_sorted_runs n={n} as one run: max_abs_err {e}, "
+        f"{ms_one:.3f} ms, {bound2 / ms_one:.1%} of bound")
+    err2 = max(err2, e)
+    del one
 
     # the count's chunked branch (pools above one batch) against its
     # single-shot branch, both on the card
@@ -289,10 +325,14 @@ def phase_kernels(torch, data) -> list[dict]:
     ]
 
 
-def _planes(torch, rng, n: int, dup: bool):
+def _planes(torch, rng, n: int, kind: str):
     """48-bit keys as (hi int32, lo int16) planes on the card, the
     inputs of megahit_tpu's tests/test_sortnet.py::mk: the low 4 bits of
-    lo zero; dup=True is duplicate-heavy (7 x 3 distinct keys)."""
+    lo zero. kind: "uniform"; "dup", duplicate-heavy (7 x 3 distinct
+    keys); "ascending" / "descending", so that at every merge level one
+    run of each pair lies wholly below the other (A below B, or B below
+    A: a tile's window is all A or all B); "equal", one key (ties go to
+    A)."""
     import numpy as np
 
     from megahit_tpu_torch.core import sortnet
@@ -300,10 +340,16 @@ def _planes(torch, rng, n: int, dup: bool):
     hi = rng.integers(0, 2 ** 32, n, dtype=np.uint32)
     lo = (rng.integers(0, 2 ** 12, n, dtype=np.uint32) << 4).astype(
         np.uint16)
-    if dup:
+    if kind == "dup":
         hi = (hi % 7).astype(np.uint32)
         lo = ((lo.astype(np.uint32) % 3) << 4).astype(np.uint16)
     key = (hi.astype(np.int64) << 16) | lo.astype(np.int64)
+    if kind in ("ascending", "descending"):
+        key = np.sort(key)
+        if kind == "descending":
+            key = key[::-1].copy()
+    elif kind == "equal":
+        key[:] = key[0]
     return sortnet.unpack_key(torch.from_numpy(key).cuda())
 
 
@@ -346,12 +392,15 @@ def phase_sortnet(torch) -> list[dict]:
     n = 1 << 24
     rng = np.random.default_rng(7)
     err, launches, times = 0, None, None
-    for dup, size, init_run, max_tile in (
-            (False, n, sortnet.INIT_RUN, sortnet.MAX_TILE),
-            (True, n, sortnet.INIT_RUN, sortnet.MAX_TILE),
-            (False, 8192, 512, 1024),
-            (True, 8192, 512, 1024)):
-        hi, lo = _planes(torch, rng, size, dup=dup)
+    for kind, size, init_run, max_tile in (
+            ("uniform", n, sortnet.INIT_RUN, sortnet.MAX_TILE),
+            ("dup", n, sortnet.INIT_RUN, sortnet.MAX_TILE),
+            ("ascending", n, sortnet.INIT_RUN, sortnet.MAX_TILE),
+            ("descending", n, sortnet.INIT_RUN, sortnet.MAX_TILE),
+            ("equal", n, sortnet.INIT_RUN, sortnet.MAX_TILE),
+            ("uniform", 8192, 512, 1024),
+            ("dup", 8192, 512, 1024)):
+        hi, lo = _planes(torch, rng, size, kind)
         key = sortnet.pack_key(hi, lo)
         # the path's run: sort_planes as a user calls it, counts from 0
         sortnet.merge_pairs.launches = 0
@@ -364,7 +413,7 @@ def phase_sortnet(torch) -> list[dict]:
                 .abs().max())
         first = launches is None
         e2, t = _check_levels(torch, hi, lo, init_run, max_tile, timed=first)
-        log(f"[4] sort_planes n={size} dup={dup} init_run={init_run} "
+        log(f"[4] sort_planes n={size} {kind} init_run={init_run} "
             f"max_tile={max_tile}: launches {counts}, result == torch.sort "
             f"(max_abs_err {e}), every level == plain and every split == "
             f"plain (max_abs_err {e2})")
@@ -375,8 +424,12 @@ def phase_sortnet(torch) -> list[dict]:
                                iters=3, warm=1)
             lib_ms = cuda_ms(torch, lambda: torch.sort(key), iters=5,
                              warm=1)
+            ch, cl = torch.empty_like(hi), torch.empty_like(lo)
+            copy_ms = cuda_ms(torch, lambda: (ch.copy_(hi), cl.copy_(lo)))
             log(f"[4] sort_planes n=2^24: {total_ms:.3f} ms per call; "
-                f"torch.sort of the packed int64 key {lib_ms:.3f} ms")
+                f"torch.sort of the packed int64 key {lib_ms:.3f} ms; a "
+                f"copy of the planes (12 B a key) {copy_ms:.4f} ms")
+            del ch, cl
         del hi, lo, key, oh, ol
     if err:
         fail(f"merge kernels disagree with their plain versions: {err}")

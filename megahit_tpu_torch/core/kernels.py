@@ -42,9 +42,6 @@ SOURCES = ("canonical_kmers", "count_runs", "merge_pairs", "merge_path")
 # headers a source includes (a change rebuilds it)
 HEADERS = {"merge_pairs": ("merge_common.cuh",),
            "merge_path": ("merge_common.cuh",)}
-# count_sorted_runs indexes rows with 32-bit ints (its last block of 1024
-# threads must not overflow them)
-MAX_ROWS = 2 ** 31 - 1024
 
 # ---------------------------------------------------------------------------
 # layout helpers
@@ -164,8 +161,9 @@ _LAUNCH = {
     "canonical_kmers": {"canonical_all_kmers_launch":
                         [_vp, _vp, _ll, _ci, _vp]},
     "count_runs": {"count_sorted_runs_launch":
-                   [ctypes.POINTER(_vp), _ci, _ci, _ci, _vp, _vp, _vp, _vp,
-                    _vp]},
+                   [ctypes.POINTER(_vp), _ci, _ci, _ci, _vp, _vp, _vp, _ll,
+                    _vp],
+                   "count_runs_tile": []},
     "merge_pairs": {"merge_pairs_launch":
                     [_vp, _vp, _vp, _vp, _ll, _ci, _vp]},
     "merge_path": {"merge_path_launch":
@@ -300,13 +298,20 @@ def count_sorted_runs(cols, n_inv: int):
     count_sorted_runs_device). Bound on an H100 by bytes: W*4 B read
     and 5 B written per row. The TPU kernel walks its grid last block
     first and carries the suffix-min of head positions from step to
-    step; blocks on Hopper run in no order, so the carry is explicit:
-    pass 1 flags heads (each thread reads its predecessor row) and
-    reduces each block's first head; pass 2, one block, turns those
-    into an exclusive suffix-min; pass 3 finishes each block's suffix-
-    min with warp shuffles plus shared memory and the carry, and writes
-    counts and heads. Any n up to MAX_ROWS, no padding; long runs cost
-    nothing extra."""
+    step; blocks on Hopper run in no order. One launch (after one
+    memset of its scratch) replaces the port's first three passes
+    (heads and block minima, a one-block carry, finish), which sent the
+    head flags through device memory twice and ran the carry on one
+    block: tiles of 4096 rows are taken last first from an atomic
+    ticket, each thread keeps the head flags of its 16 rows (4 groups of
+    4, so that a warp's 16-B loads and stores are contiguous) in a
+    register mask, the next head inside a tile comes from bit scans,
+    shuffles and shared memory, and a decoupled look-ahead
+    over per-tile descriptors brings the first head of the later tiles:
+    a tile with a head publishes it at once, a headless one reads ahead
+    until it finds one. On the card n is at most 2^31 minus a tile (rows
+    are 32-bit ints there); no padding, columns at any 4-B offset
+    (scalar loads where one is not 16-B aligned)."""
     cols = tuple(cols)
     if not 1 <= len(cols) <= 16:
         raise ValueError(f"1..16 key columns expected, got {len(cols)}")
@@ -317,26 +322,35 @@ def count_sorted_runs(cols, n_inv: int):
                else torch.int32)
         if c.shape[0] != n or c.device != dev:
             raise ValueError("key columns differ in length or device")
-    if not 1 <= n <= MAX_ROWS:
-        raise ValueError(f"row count must be in [1, {MAX_ROWS}], got {n}")
+    if n < 1:
+        raise ValueError(f"row count must be at least 1, got {n}")
     if not 0 <= n_inv <= n:
         raise ValueError(f"n_inv must be in [0, {n}], got {n_inv}")
     if dev.type == "cpu":
         return count_sorted_runs_plain(cols, n_inv)
-    nb = -(-n // 1024)
+    tile = count_runs_tile()
+    if n > 2 ** 31 - tile:
+        raise ValueError(f"row count must be at most {2 ** 31 - tile} on "
+                         f"the card, got {n}")
     head = torch.empty(n, dtype=torch.uint8, device=dev)
     counts = torch.empty(n, dtype=torch.int32, device=dev)
-    block_min = torch.empty(nb, dtype=torch.int32, device=dev)
-    carry = torch.empty(nb, dtype=torch.int32, device=dev)
+    # per-tile descriptors and the ticket, zeroed by the launch function
+    scratch = torch.empty(-(-n // tile) + 1, dtype=torch.int64, device=dev)
     ptrs = (ctypes.c_void_p * len(cols))(*[c.data_ptr() for c in cols])
     lib = _lib("count_runs")
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.count_sorted_runs_launch(
         ptrs, len(cols), n, int(n_inv), head.data_ptr(),
-        counts.data_ptr(), block_min.data_ptr(), carry.data_ptr(), stream)
+        counts.data_ptr(), scratch.data_ptr(), scratch.numel(), stream)
     count_sorted_runs.launches += 1
     _raise_on(err, "count_sorted_runs")
     return head.view(torch.bool), counts
 
 
 count_sorted_runs.launches = 0
+
+
+def count_runs_tile() -> int:
+    """Rows per tile of count_sorted_runs' kernel (count_runs.cu's
+    kTile, read from the built library)."""
+    return _lib("count_runs").count_runs_tile()

@@ -32,10 +32,12 @@ from . import kernels
 
 # Defaults for the card: a Hopper block has at most 227 KB of shared
 # memory (the TPU kernels had megabytes of VMEM and used 8192 / 65536).
-# A tile of 8192 keys takes 48 KB of key planes plus the 16 KB staging
-# buffer, so three blocks fit one SM; the first two merge levels at
-# 2^24 keys (runs of 2048 and 4096) go through kernel 3 and the rest
-# through kernel 4. The sorted result does not depend on either value.
+# Kernel 3 holds a pair of up to 8192 keys (48 KB of key planes plus the
+# 16 KB staging buffer, three blocks an SM); kernel 4 keeps two tiles of
+# 8192 keys in a ring (96 KB, two blocks an SM), its largest tile. The
+# first two merge levels at 2^24 keys (runs of 2048 and 4096) go through
+# kernel 3 and the rest through kernel 4. The sorted result does not
+# depend on either value.
 INIT_RUN = 2048
 MAX_TILE = 8192
 
@@ -129,11 +131,15 @@ def merge_path_level(hi, lo, run_len: int, tile: int):
 
     Replaces megahit_tpu/core/sortnet.py:363 _merge_level_path (kernel
     from _make_path_kernel, splits from _merge_path_splits). Bound on an
-    H100 by bytes, 12 B a key. One block per output tile: the block
-    binary-searches its own split in device memory (as merge_path_splits
-    does), copies its A and B windows (tile keys together) into shared
-    memory and merges them as merge_pairs does. tile divides run_len and
-    is at most the kernel's kMaxTile (merge_common.cuh)."""
+    H100 by bytes, 12 B a key. Persistent blocks walk contiguous ranges
+    of output tiles: a producer warp finds the next tile's split with a
+    32-way warp search in device memory (as merge_path_splits does) and
+    bulk-copies its A and B windows into a two-slot ring in shared
+    memory while the block's other 8 warps merge the current tile (one
+    merge-path search and 32 ranks a thread) and store it in 16-B
+    vectors through a bank-conflict-free staging layout. tile divides
+    run_len and is at most the kernel's kPathMaxTile, 8192
+    (merge_path.cu)."""
     _check_planes(hi, lo)
     n = hi.shape[0]
     _check_level(n, run_len)

@@ -1,6 +1,7 @@
 // Shared device code of the two merge kernels (merge_pairs.cu,
 // merge_path.cu): 48-bit keys as a u32 `hi` plane and a u16 `lo` plane,
-// compared as the u64 (hi << 16) | lo, ascending.
+// compared as the u64 (hi << 16) | lo, ascending. merge_path.cu takes
+// only the key helpers; it has its own pipelined tile merge.
 //
 // merge_tile merges two sorted runs that one block holds in shared
 // memory (A at [0, len_a), B at [len_a, len_a + len_b), 6 B a key) into
@@ -36,24 +37,6 @@ __device__ __forceinline__ uint64_t gkey(const uint32_t* __restrict__ hi,
                                          const uint16_t* __restrict__ lo,
                                          long long i) {
   return (static_cast<uint64_t>(__ldg(hi + i)) << 16) | __ldg(lo + i);
-}
-
-// A-priority split of the first q merged ranks of runs a (length la) and
-// b (length lb) in device memory: the largest count x of A elements with
-// x == max(0, q - lb) or A[x - 1] <= B[q - x].
-__device__ __forceinline__ int split_global(const uint32_t* __restrict__ hi,
-                                            const uint16_t* __restrict__ lo,
-                                            long long a, long long b,
-                                            int la, int lb, int q) {
-  int x_lo = max(0, q - lb), x_hi = min(q, la);
-  while (x_lo < x_hi) {
-    const int x = (x_lo + x_hi + 1) >> 1;
-    if (gkey(hi, lo, a + x - 1) <= gkey(hi, lo, b + q - x))
-      x_lo = x;
-    else
-      x_hi = x - 1;
-  }
-  return x_lo;
 }
 
 // Copy n keys from device memory into the shared planes at offset dst.

@@ -51,19 +51,54 @@ def test_canonical_kernel_matches_plain(k):
     assert torch.equal(got, tkern.canonical_all_kmers_plain(packed, k))
 
 
-@pytest.mark.parametrize("n,dup,ninv,w", [
-    (1, 1, 0, 1), (1_000_003, 40, 333, 2), (3_000_017, 3_000_017, 9, 1),
-    (98_305, 3, 1, 3), (33_000, 5, 32_999, 2),
+def _count_cols(n, dup, ninv, w, kind, offset):
+    """w int32 key columns on the card for count_sorted_runs: "random"
+    (_sorted_cols), "one_run" (every row one key) or "tile_runs" (a run
+    per kernel tile, so runs end on tile boundaries); the
+    last ninv rows all-ones sentinels. Column c starts offset[c] int32
+    words past the start of its allocation (16-B aligned)."""
+    if kind == "random":
+        hi, lo = _sorted_cols(np.random.default_rng(n), n, dup, ninv)
+    else:
+        hi = (np.arange(n) // tkern.count_runs_tile() if kind == "tile_runs"
+              else np.zeros(n)).astype(np.uint32)
+        lo = np.zeros(n, np.uint32)
+        if ninv:
+            hi[-ninv:] = 0xFFFFFFFF
+            lo[-ninv:] = 0xFFFFFFFF
+    cols = ([hi, lo] + [lo] * (w - 2))[:w]
+    offs = offset if isinstance(offset, tuple) else (offset,) * w
+    return tuple(
+        _i32(np.concatenate([np.zeros(o, np.uint32), a])).cuda()[o:]
+        for a, o in zip(cols, offs))
+
+
+@pytest.mark.parametrize("n,dup,ninv,w,kind,offset", [
+    (1, 1, 0, 1, "random", 0), (1_000_003, 40, 333, 2, "random", 0),
+    (3_000_017, 3_000_017, 9, 1, "random", 0),
+    (98_305, 3, 1, 3, "random", 0),
+    (33_000, 5, 32_999, 2, "random", 0),
+    # every tile but the first headless: the longest look-ahead chain
+    (4_000_000, 1, 0, 2, "one_run", 0),
+    (4_000_000, 1, 4_000_000, 2, "one_run", 0),  # n_inv = n
+    (3 * 4096, 1, 0, 2, "tile_runs", 0),
+    (5 * 4096 + 7, 1, 7, 2, "tile_runs", 0),
+    (4095, 30, 0, 2, "random", 0), (4096, 30, 0, 2, "random", 0),
+    (4097, 30, 0, 2, "random", 0), (10_001, 300, 5, 2, "random", 0),
+    # columns 4 B past a 16-B boundary, all of them or one of two
+    (100_003, 50, 11, 2, "random", 1), (100_003, 50, 11, 2, "random", (0, 1)),
+    (50_000, 20, 3, 16, "random", 0),  # W = 16
 ])
-def test_count_kernel_matches_plain(n, dup, ninv, w):
-    hi, lo = _sorted_cols(np.random.default_rng(n), n, dup, ninv)
-    cols = [_i32(hi), _i32(lo)] + [_i32(lo)] * (w - 2)
-    cols = tuple(c.cuda() for c in cols[:w])
+def test_count_kernel_matches_plain(n, dup, ninv, w, kind, offset):
+    cols = _count_cols(n, dup, ninv, w, kind, offset)
     before = tkern.count_sorted_runs.launches
-    h1, c1 = tkern.count_sorted_runs(cols, ninv)
-    assert tkern.count_sorted_runs.launches == before + 1
+    # two launches back to back on one stream: each zeroes its own
+    # descriptors and ticket
+    got = [tkern.count_sorted_runs(cols, ninv) for _ in range(2)]
+    assert tkern.count_sorted_runs.launches == before + 2
     h0, c0 = tkern.count_sorted_runs_plain(cols, ninv)
-    assert torch.equal(h1, h0) and torch.equal(c1, c0)
+    for h1, c1 in got:
+        assert torch.equal(h1, h0) and torch.equal(c1, c0)
 
 
 def test_wrappers_refuse_bad_cuda_operands():
@@ -73,16 +108,36 @@ def test_wrappers_refuse_bad_cuda_operands():
     with pytest.raises(ValueError):
         tkern.canonical_all_kmers(
             torch.zeros(64, dtype=torch.int32, device="cuda")[::2], 21)
+    # the count's launch refuses a scratch shorter than its tiles need
+    n = 3 * tkern.count_runs_tile() + 1
+    col = torch.zeros(n, dtype=torch.int32, device="cuda")
+    head = torch.empty(n, dtype=torch.uint8, device="cuda")
+    counts = torch.empty(n, dtype=torch.int32, device="cuda")
+    scratch = torch.empty(4, dtype=torch.int64, device="cuda")
+    ptrs = (tkern.ctypes.c_void_p * 1)(col.data_ptr())
+    err = tkern._lib("count_runs").count_sorted_runs_launch(
+        ptrs, 1, n, 0, head.data_ptr(), counts.data_ptr(),
+        scratch.data_ptr(), 4, torch.cuda.current_stream().cuda_stream)
+    assert err == 1  # cudaErrorInvalidValue
 
 
-def _sorted_runs(rng, n, run, dup):
+def _sorted_runs(rng, n, run, kind):
     """48-bit (hi int32, lo int16) planes on the card, sorted in runs of
-    `run` keys; dup=True is the duplicate-heavy case."""
+    `run` keys: "uniform", "dup" (duplicate-heavy), "a_below" / "b_below"
+    (in every pair, one run's keys all below the other's, so a tile's
+    window is all A or all B) or "equal" (one key: ties go to A)."""
     from megahit_tpu_torch.core import sortnet
 
+    dup = kind == "dup"
     hi = rng.integers(0, 7 if dup else 2 ** 32, n).astype(np.uint32)
     lo = (rng.integers(0, 3 if dup else 2 ** 12, n) << 4).astype(np.uint16)
     key = (hi.astype(np.int64) << 16) | lo
+    if kind in ("a_below", "b_below"):
+        key = key >> 1  # below 2^47
+        first = (np.arange(n) // run) % 2 == (kind == "b_below")
+        key = np.where(first, key, key + (1 << 47))
+    elif kind == "equal":
+        key = np.full(n, 0x123456789AB, np.int64)
     key = np.sort(key.reshape(-1, run), axis=1).reshape(-1)
     return sortnet.unpack_key(torch.from_numpy(key).cuda())
 
@@ -93,7 +148,8 @@ def _sorted_runs(rng, n, run, dup):
 def test_merge_pairs_kernel_matches_plain(n, run, dup):
     from megahit_tpu_torch.core import sortnet
 
-    hi, lo = _sorted_runs(np.random.default_rng(run), n, run, dup)
+    hi, lo = _sorted_runs(np.random.default_rng(run), n, run,
+                          "dup" if dup else "uniform")
     before = sortnet.merge_pairs.launches
     gh, gl = sortnet.merge_pairs(hi, lo, run)
     assert sortnet.merge_pairs.launches == before + 1
@@ -101,13 +157,24 @@ def test_merge_pairs_kernel_matches_plain(n, run, dup):
     assert torch.equal(gh, ph) and torch.equal(gl, pl)
 
 
-@pytest.mark.parametrize("n,run,tile,dup", [(1 << 20, 1 << 16, 8192, False),
-                                            (1 << 20, 1 << 19, 8192, True),
-                                            (8192, 1024, 1024, False)])
-def test_merge_path_kernel_matches_plain(n, run, tile, dup):
+@pytest.mark.parametrize("n,run,tile,kind", [
+    (1 << 20, 1 << 16, 8192, "uniform"), (1 << 20, 1 << 19, 8192, "dup"),
+    (8192, 1024, 1024, "uniform"), (1 << 20, 1 << 16, 8192, "a_below"),
+    (1 << 20, 1 << 16, 8192, "b_below"), (1 << 20, 1 << 16, 8192, "equal"),
+    (1 << 20, 8192, 8192, "uniform"),  # run_len == tile
+    (4096, 16, 4, "uniform"), (8192, 64, 32, "dup")])
+def test_merge_path_kernel_matches_plain(n, run, tile, kind):
     from megahit_tpu_torch.core import sortnet
 
-    hi, lo = _sorted_runs(np.random.default_rng(run + 1), n, run, dup)
+    hi, lo = _sorted_runs(np.random.default_rng(run + 1), n, run, kind)
+    if kind == "uniform" and n // tile >= 64:
+        # the tiles' A and B windows start at every residue mod 8 (the
+        # bulk copies take their 16-B aligned supersets)
+        a_from, _ = sortnet.merge_path_splits_plain(hi, lo, run, tile)
+        t = torch.arange(n // tile, device=a_from.device) * tile
+        ps = t // (2 * run) * (2 * run)
+        starts = torch.cat([ps + a_from, ps + run + (t - ps) - a_from])
+        assert len(set((starts % 8).tolist())) == 8
     before = sortnet.merge_path_level.launches
     gh, gl = sortnet.merge_path_level(hi, lo, run, tile)
     assert sortnet.merge_path_level.launches == before + 1
@@ -115,13 +182,14 @@ def test_merge_path_kernel_matches_plain(n, run, tile, dup):
     assert torch.equal(gh, ph) and torch.equal(gl, pl)
 
 
-@pytest.mark.parametrize("n,run,tile,dup", [(1 << 20, 1 << 16, 8192, False),
-                                            (1 << 20, 1 << 19, 8192, True),
-                                            (8192, 1024, 256, True)])
-def test_merge_path_splits_kernel_matches_plain(n, run, tile, dup):
+@pytest.mark.parametrize("n,run,tile,kind", [
+    (1 << 20, 1 << 16, 8192, "uniform"), (1 << 20, 1 << 19, 8192, "dup"),
+    (8192, 1024, 256, "dup"), (1 << 20, 1 << 16, 8192, "a_below"),
+    (1 << 20, 1 << 16, 8192, "b_below"), (1 << 20, 1 << 16, 8192, "equal")])
+def test_merge_path_splits_kernel_matches_plain(n, run, tile, kind):
     from megahit_tpu_torch.core import sortnet
 
-    hi, lo = _sorted_runs(np.random.default_rng(run + 2), n, run, dup)
+    hi, lo = _sorted_runs(np.random.default_rng(run + 2), n, run, kind)
     got = sortnet.merge_path_splits(hi, lo, run, tile)
     want = sortnet.merge_path_splits_plain(hi, lo, run, tile)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
