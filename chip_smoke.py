@@ -26,11 +26,16 @@ Phases, each printing its own lines:
    descending, so that one run of every pair lies below the other, and
    all keys equal) and at init_run=512, max_tile=1024, n=8192 (uniform
    and duplicate-heavy), each sort_planes result against torch.sort,
-   then its merge levels one at a time, each against the plain version
-   and kernel 4's split search against its plain version; with each
-   kernel's launches per call (counters set to 0 just before the
-   uniform 2^24 call), time per launch, byte bound, torch.sort of the
-   packed key, and a copy of the 2^24 planes (what one level moves);
+   then its merge levels one at a time, each against the plain version,
+   kernel 4's split search against its plain version, and at kernel 3's
+   levels kernel 4 with tile = run_len too; with each kernel's launches
+   per call (counters set to 0 just before the uniform 2^24 call), time
+   per launch and per level (kernel 3's beside kernel 4's at its
+   levels), byte bound, and per level torch.sort of the packed key's
+   rows of 2 * run_len (the one call that computes a level; a kernel's
+   library time is the mean over its levels); sort_planes' time beside
+   torch.sort of the whole packed key, and a copy of the 2^24 planes
+   (what one level moves);
 5. the make_test_data fixtures on cuda and on cpu, with --k-list 21,
    with the default ladder, and with the default ladder and --no-local:
    each pair of final.contigs.fa must be byte-identical;
@@ -357,8 +362,13 @@ def _check_levels(torch, hi, lo, init_run, max_tile, timed):
     """sort_planes' merge levels (sortnet.merge_levels) one at a time:
     each kernel's output against merge_pairs_plain, the plain version
     of both kernels, and at kernel 4's levels its split search against
-    merge_path_splits_plain. Returns (max |difference|, per kernel a
-    list of (ms, plain_ms) per level when timed)."""
+    merge_path_splits_plain. At kernel 3's levels kernel 4 runs too,
+    with tile = run_len, against the same plain version. Returns (max
+    |difference|, per kernel a list of per-level times when timed: the
+    kernel's ms (CUDA events around 10 launches) and its device time a
+    launch (torch.profiler), its plain version's ms, the library's (one
+    torch.sort of the packed key's rows of 2 * run_len, which computes
+    the level) and, at kernel 3's levels, kernel 4's)."""
     from megahit_tpu_torch.core import sortnet
 
     pk = sortnet.pack_key
@@ -368,17 +378,33 @@ def _check_levels(torch, hi, lo, init_run, max_tile, timed):
         name = merge.func.__name__
         gh, gl = merge(hi, lo)
         ph, pl = sortnet.merge_pairs_plain(hi, lo, run)
-        err = max(err, int((pk(gh, gl) - pk(ph, pl)).abs().max()))
+        want = pk(ph, pl)
+        err = max(err, int((pk(gh, gl) - want).abs().max()))
         if name == "merge_path_level":
             got = sortnet.merge_path_splits(hi, lo, run, max_tile)
-            want = sortnet.merge_path_splits_plain(hi, lo, run, max_tile)
+            splits = sortnet.merge_path_splits_plain(hi, lo, run, max_tile)
             err = max(err, *(int((g.long() - w.long()).abs().max())
-                             for g, w in zip(got, want)))
+                             for g, w in zip(got, splits)))
+        else:
+            err = max(err, int((pk(*sortnet.merge_path_level(
+                hi, lo, run, run)) - want).abs().max()))
         if timed:
-            times[name].append((
-                cuda_ms(torch, lambda: merge(hi, lo), iters=5, warm=1),
-                cuda_ms(torch, lambda: sortnet.merge_pairs_plain(hi, lo, run),
-                        iters=2, warm=1)))
+            key = pk(hi, lo).view(-1, 2 * run)
+            t = {"run": run,
+                 "ms": cuda_ms(torch, lambda: merge(hi, lo)),
+                 "plain_ms": cuda_ms(
+                     torch, lambda: sortnet.merge_pairs_plain(hi, lo, run),
+                     iters=2, warm=1),
+                 "library_ms": cuda_ms(
+                     torch, lambda: torch.sort(key, dim=1), iters=5, warm=1),
+                 "device_ms": sum(ms for _, ms, _ in _device_ops(
+                     torch, lambda: merge(hi, lo), iters=5))}
+            if name == "merge_pairs":
+                t["path_ms"] = cuda_ms(
+                    torch, lambda: sortnet.merge_path_level(hi, lo, run, run),
+                    iters=5, warm=1)
+            times[name].append(t)
+            del key
         hi, lo = gh, gl
     return err, times
 
@@ -427,8 +453,8 @@ def phase_sortnet(torch) -> list[dict]:
             ch, cl = torch.empty_like(hi), torch.empty_like(lo)
             copy_ms = cuda_ms(torch, lambda: (ch.copy_(hi), cl.copy_(lo)))
             log(f"[4] sort_planes n=2^24: {total_ms:.3f} ms per call; "
-                f"torch.sort of the packed int64 key {lib_ms:.3f} ms; a "
-                f"copy of the planes (12 B a key) {copy_ms:.4f} ms")
+                f"torch.sort of the whole packed int64 key {lib_ms:.3f} "
+                f"ms; a copy of the planes (12 B a key) {copy_ms:.4f} ms")
             del ch, cl
         del hi, lo, key, oh, ol
     if err:
@@ -438,23 +464,29 @@ def phase_sortnet(torch) -> list[dict]:
     for name, src, rep_line in (
             ("merge_pairs", "merge_pairs.cu", 224),
             ("merge_path_level", "merge_path.cu", 363)):
-        ms = [t[0] for t in times[name]]
-        plain = [t[1] for t in times[name]]
-        if launches[name] <= 0 or not ms:
+        lv = times[name]
+        if launches[name] <= 0 or not lv:
             fail(f"{name} was not launched by sort_planes: {launches}")
-        mean, pmean = sum(ms) / len(ms), sum(plain) / len(plain)
+        mean = {k: sum(t[k] for t in lv) / len(lv)
+                for k in ("ms", "plain_ms", "library_ms")}
         log(f"[4] {name}: {launches[name]} launches per sort_planes call, "
-            f"per launch {mean:.3f} ms (levels: "
-            + ", ".join(f"{m:.3f}" for m in ms)
-            + f"), plain {pmean:.3f} ms, bound {bound:.3f} ms "
-            f"({12 * n} B), {bound / mean:.1%} of bound")
+            f"per launch {mean['ms']:.3f} ms, plain {mean['plain_ms']:.3f} "
+            f"ms, row torch.sort {mean['library_ms']:.3f} ms, bound "
+            f"{bound:.3f} ms ({12 * n} B), {bound / mean['ms']:.1%} of bound")
+        for t in lv:
+            log(f"[4] {name} run_len {t['run']}: {t['ms']:.3f} ms (on the "
+                f"device {t['device_ms']:.3f} ms), torch.sort of rows of "
+                f"{2 * t['run']} {t['library_ms']:.3f} ms"
+                + (f", merge_path_level with tile {t['run']} "
+                   f"{t['path_ms']:.3f} ms" if "path_ms" in t else ""))
         out.append({
             "name": name, "route": "cuda",
             "source": f"megahit_tpu_torch/csrc/{src}",
             "replaces": f"megahit_tpu/core/sortnet.py:{rep_line}",
-            "launches": launches[name], "max_abs_err": err, "ms": mean,
-            "plain_ms": pmean, "bound_ms": bound, "bound_by": "bytes",
-            "library_ms": lib_ms})
+            "launches": launches[name], "max_abs_err": err,
+            "ms": mean["ms"], "plain_ms": mean["plain_ms"],
+            "bound_ms": bound, "bound_by": "bytes",
+            "library_ms": mean["library_ms"]})
     return out
 
 

@@ -115,21 +115,26 @@ def _so_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}.so")
 
 
+def _stale(name: str) -> bool:
+    """The library of source `name` is missing, or older than the
+    source or a header it includes."""
+    so = _so_path(name)
+    deps = [os.path.join(_CSRC, f"{name}.cu")] + [
+        os.path.join(_CSRC, h) for h in HEADERS.get(name, ())]
+    return not os.path.exists(so) or os.path.getmtime(so) < max(
+        os.path.getmtime(d) for d in deps)
+
+
 def build_kernels(verbose: bool = False) -> dict[str, float]:
-    """Compile every CUDA source that is missing or older than its
-    .so, one nvcc per source, all started together. Returns the
-    seconds each build took. Raises if any build fails."""
+    """Compile every CUDA source whose library is stale (_stale), one
+    nvcc per source, all started together. Returns the seconds each
+    build took. Raises if any build fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
-    for name in SOURCES:
+    for name in filter(_stale, SOURCES):
         src = os.path.join(_CSRC, f"{name}.cu")
         so = _so_path(name)
-        deps = [src] + [os.path.join(_CSRC, h)
-                        for h in HEADERS.get(name, ())]
-        if os.path.exists(so) and os.path.getmtime(so) >= max(
-                os.path.getmtime(d) for d in deps):
-            continue
         tmp = f"{so}.tmp.{os.getpid()}"
         cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -32,12 +32,11 @@ from . import kernels
 
 # Defaults for the card: a Hopper block has at most 227 KB of shared
 # memory (the TPU kernels had megabytes of VMEM and used 8192 / 65536).
-# Kernel 3 holds a pair of up to 8192 keys (48 KB of key planes plus the
-# 16 KB staging buffer, three blocks an SM); kernel 4 keeps two tiles of
-# 8192 keys in a ring (96 KB, two blocks an SM), its largest tile. The
-# first two merge levels at 2^24 keys (runs of 2048 and 4096) go through
-# kernel 3 and the rest through kernel 4. The sorted result does not
-# depend on either value.
+# Both kernels keep two tiles of 8192 keys in a ring (96 KB, two blocks
+# an SM); 8192 is kernel 4's largest tile and kernel 3's slot of whole
+# pairs. The first two merge levels at 2^24 keys (runs of 2048 and 4096)
+# go through kernel 3 and the rest through kernel 4. The sorted result
+# does not depend on either value.
 INIT_RUN = 2048
 MAX_TILE = 8192
 
@@ -96,11 +95,14 @@ def merge_pairs(hi, lo, run_len: int):
 
     Replaces megahit_tpu/core/sortnet.py:224 _merge_level_aligned
     (kernel body _merge_pair_kernel). Bound on an H100 by bytes, 12 B a
-    key. One block per pair: the pair is loaded into shared memory,
-    each thread finds its output ranks' start by a merge-path binary
-    search and merges them in registers, and the stores are coalesced
-    through shared memory. 2 * run_len is at most the kernel's kMaxTile
-    (merge_common.cuh)."""
+    key. Kernel 4's pipeline (merge_common.cuh) with no split search:
+    persistent blocks walk slots of 8192 keys (whole pairs); a producer
+    warp bulk-copies the next slot into a two-slot ring in shared memory
+    while 8 warps merge the current one, 32 ranks a thread inside its own
+    pair, and store it in 16-B vectors through a bank-conflict-free
+    staging layout. Any power-of-two run_len with 2 * run_len at most the
+    kernel's kMaxPair, 32768 (merge_pairs.cu); on the card a longer one
+    raises."""
     _check_planes(hi, lo)
     n = hi.shape[0]
     _check_level(n, run_len)
@@ -138,7 +140,7 @@ def merge_path_level(hi, lo, run_len: int, tile: int):
     memory while the block's other 8 warps merge the current tile (one
     merge-path search and 32 ranks a thread) and store it in 16-B
     vectors through a bank-conflict-free staging layout. tile divides
-    run_len and is at most the kernel's kPathMaxTile, 8192
+    run_len and is at most the kernel's kTile, 8192
     (merge_path.cu)."""
     _check_planes(hi, lo)
     n = hi.shape[0]

@@ -53,13 +53,7 @@
 
 namespace {
 
-constexpr int kSlots = 2;  // ring depth
-constexpr int kBlocksPerSm = 2;
-constexpr int kConsumers = 256;  // 8 merge warps
-constexpr int kThreads = kConsumers + 32;  // and one producer warp
-constexpr int kItems = 32;  // output ranks a merge thread takes
-constexpr int kPathMaxTile = kConsumers * kItems;
-constexpr int kHeader = 128;  // mbarriers and per-slot window offsets
+using namespace merge;
 constexpr unsigned kAll = 0xffffffffu;
 
 struct TileInfo {
@@ -68,82 +62,6 @@ struct TileInfo {
 
 static_assert(kSlots * (2 * sizeof(uint64_t) + sizeof(TileInfo)) <= kHeader,
               "the ring's mbarriers and window offsets fit the header");
-
-struct Window {
-  const void* src;  // 16-B aligned superset of the window
-  unsigned bytes;
-  int lead;  // keys before the window's first key
-};
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  unsigned done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          unsigned bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// the merge warps' own barrier (the producer warp does not take part)
-__device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
-}
-
-__device__ __forceinline__ Window window(const void* p, int len, int elem) {
-  if (len == 0) return {p, 0u, 0};
-  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
-  const uintptr_t s = a & ~static_cast<uintptr_t>(15);
-  const uintptr_t e = (a + static_cast<uintptr_t>(len) * elem + 15) &
-                      ~static_cast<uintptr_t>(15);
-  return {reinterpret_cast<const void*>(s), static_cast<unsigned>(e - s),
-          static_cast<int>((a - s) / elem)};
-}
-
-// staging layout: 16-B unit u of a plane lives at unit swz(u)
-__device__ __forceinline__ int swz(int u) { return u ^ ((u >> 3) & 7); }
-__device__ __forceinline__ int hi_at(int e) {
-  return (swz(e >> 2) << 2) | (e & 3);
-}
-__device__ __forceinline__ int lo_at(int e) {
-  return (swz(e >> 3) << 3) | (e & 7);
-}
 
 // One warp, every lane: the A-priority split of the first q merged
 // ranks of runs a (length la) and b (length lb) in device memory, the
@@ -162,8 +80,8 @@ __device__ int warp_split(const uint32_t* __restrict__ hi,
         d <= 32 ? x_lo + 1 + lane
                 : x_lo + static_cast<int>(
                              (static_cast<long long>(lane + 1) * d) >> 5);
-    const bool p = lane < d && merge::gkey(hi, lo, a + c - 1) <=
-                                   merge::gkey(hi, lo, b + q - c);
+    const bool p = lane < d && gkey(hi, lo, a + c - 1) <=
+                                   gkey(hi, lo, b + q - c);
     const int k = __popc(__ballot_sync(kAll, p));
     const int c_last = __shfl_sync(kAll, c, max(k - 1, 0));
     const int c_next = __shfl_sync(kAll, c, min(k, 31));
@@ -176,8 +94,6 @@ __device__ int warp_split(const uint32_t* __restrict__ hi,
   }
   return x_lo;
 }
-
-using merge::key_at;
 
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 merge_path_kernel(const uint32_t* __restrict__ hi,
@@ -193,13 +109,7 @@ merge_path_kernel(const uint32_t* __restrict__ hi,
   const long long t_begin = tiles * blockIdx.x / gridDim.x;
   const long long t_end = tiles * (blockIdx.x + 1) / gridDim.x;
   const long long pair = 2LL * run_len;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kSlots; ++s) {
-      mbar_init(full + s, 1);
-      mbar_init(empty + s, kConsumers);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
+  init_ring(full, empty);
   __syncthreads();
 
   if (threadIdx.x >= kConsumers) {  // the producer warp
@@ -247,83 +157,15 @@ merge_path_kernel(const uint32_t* __restrict__ hi,
     unsigned char* slot = smem + kHeader + s * slot_bytes;
     uint32_t* s_hi = reinterpret_cast<uint32_t*>(slot);
     uint16_t* s_lo = reinterpret_cast<uint16_t*>(slot + hi_cap * 4);
-    const uint32_t* a_hi = s_hi + ti.a_hi;
-    const uint32_t* b_hi = s_hi + ti.b_hi;
-    const uint16_t* a_lo = s_lo + ti.a_lo;
-    const uint16_t* b_lo = s_lo + ti.b_lo;
-    const int la = ti.la, lb = ti.lb;
-    uint32_t oh[kItems], ol[kItems / 2];
-    if (q < tile) {
-      int x_lo = max(0, q - lb), x_hi = min(q, la);
-      while (x_lo < x_hi) {
-        const int x = (x_lo + x_hi + 1) >> 1;
-        if (key_at(a_hi, a_lo, x - 1) <= key_at(b_hi, b_lo, q - x))
-          x_lo = x;
-        else
-          x_hi = x - 1;
-      }
-      int ia = x_lo, jb = q - x_lo;
-      uint64_t va = ia < la ? key_at(a_hi, a_lo, ia) : ~0ull;
-      uint64_t vb = jb < lb ? key_at(b_hi, b_lo, jb) : ~0ull;
-#pragma unroll
-      for (int k = 0; k < kItems; ++k) {
-        // A wins ties; an exhausted run reads as +infinity, and a rank
-        // past the tile is never stored
-        const bool take_a = jb >= lb || (ia < la && va <= vb);
-        const uint64_t v = take_a ? va : vb;
-        oh[k] = static_cast<uint32_t>(v >> 16);
-        const uint32_t l16 = static_cast<uint32_t>(v & 0xffffu);
-        ol[k >> 1] = (k & 1) ? ol[k >> 1] | (l16 << 16) : l16;
-        const int idx = take_a ? ++ia : ++jb;
-        const int lim = take_a ? la : lb;
-        const uint64_t nx = idx < lim ? key_at(take_a ? a_hi : b_hi,
-                                             take_a ? a_lo : b_lo, idx)
-                                      : ~0ull;
-        if (take_a)
-          va = nx;
-        else
-          vb = nx;
-      }
-    }
+    Ranks r;
+    if (q < tile)
+      merge_ranks(s_hi + ti.a_hi, s_lo + ti.a_lo, ti.la, s_hi + ti.b_hi,
+                  s_lo + ti.b_lo, ti.lb, q, r);
     consumers_sync();  // every read of the windows is done
-    if (q + kItems <= tile) {
-#pragma unroll
-      for (int u = 0; u < kItems / 4; ++u)
-        reinterpret_cast<uint4*>(s_hi)[swz(threadIdx.x * (kItems / 4) + u)] =
-            make_uint4(oh[4 * u], oh[4 * u + 1], oh[4 * u + 2], oh[4 * u + 3]);
-#pragma unroll
-      for (int u = 0; u < kItems / 8; ++u)
-        reinterpret_cast<uint4*>(s_lo)[swz(threadIdx.x * (kItems / 8) + u)] =
-            make_uint4(ol[4 * u], ol[4 * u + 1], ol[4 * u + 2], ol[4 * u + 3]);
-    } else if (q < tile) {
-#pragma unroll
-      for (int k = 0; k < kItems; ++k) {
-        if (q + k < tile) {
-          s_hi[hi_at(q + k)] = oh[k];
-          s_lo[lo_at(q + k)] =
-              static_cast<uint16_t>(ol[k >> 1] >> (16 * (k & 1)));
-        }
-      }
-    }
+    stage_ranks(s_hi, s_lo, q, tile, r);
     consumers_sync();
-    uint32_t* dh = out_hi + t * tile;
-    uint16_t* dl = out_lo + t * tile;
-    if (tile >= 8) {
-      for (int u = threadIdx.x; u < tile / 4; u += kConsumers)
-        reinterpret_cast<uint4*>(dh)[u] =
-            reinterpret_cast<const uint4*>(s_hi)[swz(u)];
-      for (int u = threadIdx.x; u < tile / 8; u += kConsumers)
-        reinterpret_cast<uint4*>(dl)[u] =
-            reinterpret_cast<const uint4*>(s_lo)[swz(u)];
-    } else {
-      for (int e = threadIdx.x; e < tile; e += kConsumers) {
-        dh[e] = s_hi[hi_at(e)];
-        dl[e] = s_lo[lo_at(e)];
-      }
-    }
-    // the slot's next contents arrive by the async proxy
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-    mbar_arrive(empty + s);
+    store_staged(s_hi, s_lo, tile, out_hi + t * tile, out_lo + t * tile);
+    release(empty + s);
   }
 }
 
@@ -358,12 +200,12 @@ bool bad_level(long long n, int run_len, int tile) {
 }  // namespace
 
 // n keys (a multiple of 2 * run_len), tile a power of two that divides
-// run_len, at most kPathMaxTile (8192); out_hi and out_lo 16-B aligned.
+// run_len, at most kTile (8192); out_hi and out_lo 16-B aligned.
 // Returns the CUDA error of the launch (0 on success).
 extern "C" int merge_path_launch(const void* hi, const void* lo,
                                  void* out_hi, void* out_lo, long long n,
                                  int run_len, int tile, void* stream) {
-  if (bad_level(n, run_len, tile) || tile > kPathMaxTile ||
+  if (bad_level(n, run_len, tile) || tile > kTile ||
       ((reinterpret_cast<uintptr_t>(out_hi) |
         reinterpret_cast<uintptr_t>(out_lo)) & 15))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -372,19 +214,10 @@ extern "C" int merge_path_launch(const void* hi, const void* lo,
   const int hi_cap = (tile + 16 + 3) / 4 * 4;
   const int lo_cap = (tile + 32 + 7) / 8 * 8;
   const int smem = kHeader + kSlots * (hi_cap * 4 + lo_cap * 2);
-  cudaError_t err = cudaFuncSetAttribute(
-      merge_path_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  long long grid = 0;
+  const cudaError_t err = persistent_grid(merge_path_kernel, smem, tiles,
+                                          &grid);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, merge_path_kernel, kThreads, smem)) != cudaSuccess)
-    return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const long long grid =
-      tiles < 1LL * per_sm * sms ? tiles : 1LL * per_sm * sms;
   merge_path_kernel<<<static_cast<unsigned>(grid), kThreads, smem,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(hi), static_cast<const uint16_t*>(lo),

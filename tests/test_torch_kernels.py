@@ -6,6 +6,9 @@ references with exact equality. The CUDA kernels themselves are held to
 the plain versions by tests/test_torch_kernels_gpu.py (marked `gpu`,
 skipped without a card) and by chip_smoke.py on the card."""
 
+import os
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -154,3 +157,51 @@ def test_cpu_tensors_take_the_plain_version():
     assert (tkern.canonical_all_kmers.launches,
             tkern.count_sorted_runs.launches) == before
 
+
+_CUDA_SOURCES = sorted(f[:-3] for f in os.listdir(tkern._CSRC)
+                       if f.endswith(".cu"))
+
+
+def _includes(path: str) -> set:
+    with open(path) as fh:
+        return set(re.findall(r'^\s*#include\s+"([^"]+)"', fh.read(), re.M))
+
+
+@pytest.mark.parametrize("name", _CUDA_SOURCES)
+def test_build_cache_sees_every_include(name):
+    """Every csrc/*.cu is built (SOURCES), and HEADERS lists exactly the
+    headers it includes, directly or through another header, so that an
+    edit to one rebuilds it."""
+    assert name in tkern.SOURCES
+    want, todo = set(), [f"{name}.cu"]
+    while todo:
+        for h in _includes(os.path.join(tkern._CSRC, todo.pop())) - want:
+            assert os.path.exists(os.path.join(tkern._CSRC, h)), h
+            want.add(h)
+            todo.append(h)
+    assert set(tkern.HEADERS.get(name, ())) == want
+
+
+def test_header_edit_rebuilds_its_sources(tmp_path, monkeypatch):
+    """A library older than its source or a header it includes is
+    stale; the others are not."""
+    csrc, build = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    build.mkdir()
+    headers = {h for hs in tkern.HEADERS.values() for h in hs}
+    for f in [f"{n}.cu" for n in tkern.SOURCES] + sorted(headers):
+        (csrc / f).write_text("")
+        os.utime(csrc / f, (100, 100))
+    monkeypatch.setattr(tkern, "_CSRC", str(csrc))
+    monkeypatch.setattr(tkern, "BUILD_DIR", str(build))
+    assert all(tkern._stale(n) for n in tkern.SOURCES)  # nothing built
+    for n in tkern.SOURCES:
+        (build / f"lib{n}.so").write_text("")
+        os.utime(build / f"lib{n}.so", (200, 200))
+    assert not any(tkern._stale(n) for n in tkern.SOURCES)
+    os.utime(csrc / "merge_common.cuh", (300, 300))
+    assert [n for n in tkern.SOURCES if tkern._stale(n)] == [
+        "merge_pairs", "merge_path"]
+    os.utime(csrc / "count_runs.cu", (300, 300))
+    assert [n for n in tkern.SOURCES if tkern._stale(n)] == [
+        "count_runs", "merge_pairs", "merge_path"]

@@ -119,13 +119,22 @@ def test_wrappers_refuse_bad_cuda_operands():
         ptrs, 1, n, 0, head.data_ptr(), counts.data_ptr(),
         scratch.data_ptr(), 4, torch.cuda.current_stream().cuda_stream)
     assert err == 1  # cudaErrorInvalidValue
+    # kernel 3 takes pairs of at most 32768 keys
+    from megahit_tpu_torch.core import sortnet
+
+    hi = torch.zeros(1 << 16, dtype=torch.int32, device="cuda")
+    lo = torch.zeros(1 << 16, dtype=torch.int16, device="cuda")
+    with pytest.raises(RuntimeError):
+        sortnet.merge_pairs(hi, lo, 1 << 15)
 
 
-def _sorted_runs(rng, n, run, kind):
+def _sorted_runs(rng, n, run, kind, skip=0):
     """48-bit (hi int32, lo int16) planes on the card, sorted in runs of
     `run` keys: "uniform", "dup" (duplicate-heavy), "a_below" / "b_below"
     (in every pair, one run's keys all below the other's, so a tile's
-    window is all A or all B) or "equal" (one key: ties go to A)."""
+    window is all A or all B) or "equal" (one key: ties go to A). With
+    skip, views of the planes past their first `skip` keys (the runs
+    start there)."""
     from megahit_tpu_torch.core import sortnet
 
     dup = kind == "dup"
@@ -134,27 +143,48 @@ def _sorted_runs(rng, n, run, kind):
     key = (hi.astype(np.int64) << 16) | lo
     if kind in ("a_below", "b_below"):
         key = key >> 1  # below 2^47
-        first = (np.arange(n) // run) % 2 == (kind == "b_below")
+        first = ((np.arange(n) - skip) // run) % 2 == (kind == "b_below")
         key = np.where(first, key, key + (1 << 47))
     elif kind == "equal":
         key = np.full(n, 0x123456789AB, np.int64)
-    key = np.sort(key.reshape(-1, run), axis=1).reshape(-1)
-    return sortnet.unpack_key(torch.from_numpy(key).cuda())
+    key[skip:] = np.sort(key[skip:].reshape(-1, run), axis=1).reshape(-1)
+    hi, lo = sortnet.unpack_key(torch.from_numpy(key).cuda())
+    return hi[skip:], lo[skip:]
 
 
-@pytest.mark.parametrize("n,run,dup", [(1 << 20, 2048, False),
-                                       (1 << 20, 4096, True),
-                                       (8192, 512, False)])
-def test_merge_pairs_kernel_matches_plain(n, run, dup):
+@pytest.mark.parametrize("n,run,kind,offset", [
+    (1 << 20, 2048, "uniform", 0), (1 << 20, 4096, "dup", 0),
+    (8192, 512, "uniform", 0),
+    # in every pair one run below the other, and all keys equal
+    (1 << 20, 2048, "a_below", 0), (1 << 20, 4096, "b_below", 0),
+    (1 << 20, 4096, "equal", 0),
+    # pairs shorter than a thread's 32 ranks, and one pair a thread
+    (1 << 16, 1, "uniform", 0), (1 << 16, 4, "dup", 0),
+    (1 << 18, 16, "uniform", 0), (1 << 20, 512, "dup", 0),
+    # a partial last slot: whole pairs, a part of a thread's 32 ranks,
+    # a tail below one 16-B store
+    (6 * 2048, 2048, "uniform", 0), (3 * 8192 + 24, 4, "uniform", 0),
+    (8192 + 12, 2, "dup", 0), (8192 + 2, 1, "uniform", 0),
+    # fewer slots than the grid has blocks
+    (2, 1, "uniform", 0), (4096, 2048, "uniform", 0),
+    # planes that start one key past 16 B
+    (1 << 20, 2048, "uniform", 1), (8192 + 12, 2, "uniform", 1),
+    # pairs longer than a slot of 8192: two slots in the ring, then one
+    (1 << 18, 8192, "uniform", 0), (3 * 32768, 16384, "dup", 0),
+    (3 * 32768, 16384, "uniform", 1)])
+def test_merge_pairs_kernel_matches_plain(n, run, kind, offset):
     from megahit_tpu_torch.core import sortnet
 
-    hi, lo = _sorted_runs(np.random.default_rng(run), n, run,
-                          "dup" if dup else "uniform")
+    hi, lo = _sorted_runs(np.random.default_rng(run + n), n + offset, run,
+                          kind, skip=offset)
+    assert hi.shape[0] == n
     before = sortnet.merge_pairs.launches
-    gh, gl = sortnet.merge_pairs(hi, lo, run)
-    assert sortnet.merge_pairs.launches == before + 1
+    # two launches back to back on one stream
+    got = [sortnet.merge_pairs(hi, lo, run) for _ in range(2)]
+    assert sortnet.merge_pairs.launches == before + 2
     ph, pl = sortnet.merge_pairs_plain(hi, lo, run)
-    assert torch.equal(gh, ph) and torch.equal(gl, pl)
+    for gh, gl in got:
+        assert torch.equal(gh, ph) and torch.equal(gl, pl)
 
 
 @pytest.mark.parametrize("n,run,tile,kind", [
