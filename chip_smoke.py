@@ -54,6 +54,24 @@ Phases, each printing its own lines:
    contigs checked against the genome (total within 10%, N50 above 10
    kbp); then the same on cpu, whose final.contigs.fa must be
    byte-identical to the cuda run's.
+   In [6] and [8] every cuda rung must log "cleaning on device" and none
+   "cleaning on host"; each run's assemble split (sdbg_tips,
+   unitig_build, cleaning_rounds, prune_output) is printed summed over
+   its rungs, cuda beside cpu;
+10. (run after [11]) the cleaning engines: the isolate's k=21 graph
+   (from [11]'s edge file: its solid edges and mercy) assembled on cuda with the device engine and with the host
+   engine, with careful bubbles at prune level 2 and 3, final round and
+   not: contigs, finals, addi, bubble records and stats must be equal;
+   each engine's cleaning_rounds and prune_output seconds;
+11. the out-of-core build: the isolate with --k-list 21 --kmin-1pass
+   and an -m budget that splits the k=21 build into at least 4 rounds
+   (rounds, seconds and each round's sort seconds printed; contig set
+   equal to [6]'s; its k=21 edge file kept for [10]), and a 9 kbp
+   paired read set with a 30-bp repeat and 1% errors at --k-list 21,39
+   --no-local -m 1000 on cuda and cpu (byte-identical, built out of core
+   at both k, contig set equal to the in-memory run's). The fixtures stop
+   at k=21 under --no-local, so they cannot show the second rung.
+9. (printed last) the script's total seconds.
 
 It then prints the card line, one JSON line with every kernel's numbers
 (kernels 1, 2 with the launches of [6] and, as ladder_launches, of
@@ -65,6 +83,7 @@ once.
 from __future__ import annotations
 
 import json
+import logging
 import os
 import re
 import subprocess
@@ -79,6 +98,9 @@ COVERAGE = 30
 HBM_BYTES_PER_S = 3.35e12
 # batch of the chunked count check (the isolate's pool is 4 batches)
 CHUNK = 1 << 24
+# -m bytes of the 1-pass run in [11]: 16.7M rows a round at k1=22, so the
+# isolate's ~104M spilled rows take more than 4 rounds
+ONEPASS_MEMORY = 600_000_000
 
 
 def log(msg: str) -> None:
@@ -578,6 +600,41 @@ def _check_contigs(tag: str, out: str, data) -> None:
         fail(f"{tag} N50 {st['n50']} <= 10 kbp")
 
 
+def _check_cleaning(tag: str, out: str) -> None:
+    """Every rung of a cuda run cleans on the device engine."""
+    with open(os.path.join(out, "log")) as fh:
+        text = fh.read()
+    rungs = re.findall(r"stage \d+ \(stage_assemble (\d+)\)", text)
+    on_device = text.count("cleaning on device (cuda)")
+    if "cleaning on host" in text or "falling back to host cleaning" in text:
+        fail(f"{tag} a cuda rung cleaned on the host")
+    if on_device != len(rungs):
+        fail(f"{tag} {on_device} of {len(rungs)} rungs cleaned on the "
+             "device")
+    log(f"{tag} cleaning on device at all {len(rungs)} rungs")
+
+
+def _assemble_split(out: str) -> dict:
+    """The `assemble split` seconds of a run's log, summed over rungs."""
+    split: dict[str, float] = {}
+    with open(os.path.join(out, "log")) as fh:
+        for line in fh:
+            m = re.search(r"assemble split: (.*)$", line)
+            if m:
+                for name, secs in re.findall(r"(\w+) ([0-9.]+)s",
+                                             m.group(1)):
+                    split[name] = split.get(name, 0.0) + float(secs)
+    return split
+
+
+def _log_split(tag: str, out_cuda: str, out_cpu: str) -> None:
+    a, b = _assemble_split(out_cuda), _assemble_split(out_cpu)
+    log(f"{tag} assemble split summed over rungs, cuda | cpu: " + ", ".join(
+        f"{name} {a.get(name, 0.0):.2f} | {b.get(name, 0.0):.2f}s"
+        for name in ("sdbg_tips", "unitig_build", "cleaning_rounds",
+                     "prune_output")))
+
+
 def phase_main_path(torch, data) -> dict:
     from megahit_tpu_torch.core import kernels
 
@@ -601,6 +658,7 @@ def phase_main_path(torch, data) -> dict:
         f"launches {launches}, peak device memory {peak / 2**30:.2f} GiB")
     _device_profile("[6]", prof, wall)
     _log_stages("[6]", out)
+    _check_cleaning("[6]", out)
     _check_contigs("[6]", out, data)
     if min(launches.values()) <= 0:
         fail(f"a kernel was not launched on the main path: {launches}")
@@ -625,6 +683,7 @@ def phase_cpu_match(data) -> None:
     log(f"[7] isolate --k-list 21 on cpu: {wall:.1f}s wall, "
         f"final.contigs.fa byte-identical to the cuda run")
     _log_stages("[7]", out)
+    _log_split("[7]", os.path.join(DATA, "isolate_out"), out)
 
 
 def phase_ladder(torch, data) -> dict:
@@ -659,6 +718,11 @@ def phase_ladder(torch, data) -> dict:
            "; no early termination"))
     _device_profile("[8]", prof, wall)
     _log_stages("[8]", out)
+    _check_cleaning("[8]", out)
+    log("[8] local low-depth passes on the device, by rung: " + ", ".join(
+        f"k={k} {n} in {t}s" for k, (n, t) in zip(rungs, re.findall(
+            r"local low depth: (\d+) passes on the device, ([0-9.]+)s",
+            text))))
     _check_contigs("[8]", out, data)
     if min(launches.values()) <= 0:
         fail(f"a kernel was not launched on the ladder: {launches}")
@@ -677,7 +741,179 @@ def phase_ladder(torch, data) -> dict:
     log(f"[8] isolate, default k list on cpu: {wall:.1f}s wall, "
         "final.contigs.fa byte-identical to the cuda run")
     _log_stages("[8] cpu", out_cpu)
+    _log_split("[8]", out, out_cpu)
     return launches
+
+
+class _SplitCatcher(logging.Handler):
+    """Keeps the seconds of the last `assemble split` log message."""
+
+    split: dict = {}
+
+    def emit(self, record):
+        msg = record.getMessage()
+        if msg.startswith("assemble split: "):
+            self.split = {n: float(v) for n, v in
+                          re.findall(r"(\w+) ([0-9.]+)s", msg)}
+
+
+def phase_engines(torch) -> None:
+    """The isolate's k=21 graph assembled with each cleaning engine on
+    cuda; every record must be equal."""
+    import numpy as np
+
+    from megahit_tpu_torch.graph import assemble_device
+    from megahit_tpu_torch.graph.sdbg import sdbg_from_edges
+    from megahit_tpu_torch.pipeline.assemble import (
+        AssembleOptions, assemble,
+    )
+    from megahit_tpu_torch.utils.log import get_logger
+
+    from megahit_tpu_torch.utils.log import setup_logging
+
+    setup_logging()  # console only: the last run's log file stays as is
+    edges = os.path.join(DATA, "isolate_1pass", "tmp", "k21",
+                         "k21.edges.npz")
+    if not os.path.exists(edges):
+        fail("[10] no k=21 edge file from [11]'s 1-pass run")
+    z = np.load(edges)
+    keys, counts = z["keys"], z["counts"]
+    catcher = _SplitCatcher()
+    get_logger().addHandler(catcher)
+    on_device = assemble_device.use_device_cleaning
+
+    def run(engine, prune, final):
+        assemble_device.use_device_cleaning = (
+            on_device if engine == "device" else lambda device: False)
+        try:
+            sdbg = sdbg_from_edges(keys, counts, 22, device="cuda")
+            t0 = time.monotonic()
+            res = assemble(sdbg, AssembleOptions(
+                min_standalone=300, prune_level=prune, careful_bubble=True,
+                is_final_round=final))
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        finally:
+            assemble_device.use_device_cleaning = on_device
+
+        def fmt(cs):
+            return [(c.codes.tobytes(), c.flag, f"{c.multi:.4f}")
+                    for c in cs]
+
+        return ((fmt(res.contigs), fmt(res.final_contigs),
+                 fmt(res.addi_contigs), fmt(res.bubbles), res.stats),
+                wall, dict(catcher.split))
+
+    try:
+        for prune in (2, 3):
+            for final in (False, True):
+                dev, dwall, dsplit = run("device", prune, final)
+                host, hwall, hsplit = run("host", prune, final)
+                names = ("contigs", "finals", "addi", "bubbles", "stats")
+                for name, a, b in zip(names, dev, host):
+                    if a != b:
+                        fail(f"[10] prune {prune} final {final}: {name} "
+                             "differ between the device and host engines")
+                log(f"[10] k=21 careful, prune {prune}, final {final}: "
+                    f"{len(dev[0])} contigs, {len(dev[1])} finals, "
+                    f"{len(dev[2])} addi, {len(dev[3])} bubbles equal; "
+                    f"device engine cleaning_rounds "
+                    f"{dsplit['cleaning_rounds']:.2f}s prune_output "
+                    f"{dsplit['prune_output']:.2f}s (assemble {dwall:.2f}s)"
+                    f" | host engine {hsplit['cleaning_rounds']:.2f}s, "
+                    f"{hsplit['prune_output']:.2f}s ({hwall:.2f}s)")
+    finally:
+        get_logger().removeHandler(catcher)
+
+
+def _contig_set(path: str) -> list:
+    from megahit_tpu_torch.io.contig_io import read_contigs
+
+    return sorted((c.length, c.codes.tobytes()) for c in read_contigs(path))
+
+
+def _repeat_pairs(d: str) -> tuple[str, str]:
+    """9 kbp genome with a 30-bp repeat, 2x100 bp pairs (insert 250) every
+    3 bp with 1% substitutions: the k=21 graph breaks at the repeat, so
+    a second rung runs."""
+    import gzip
+
+    import numpy as np
+
+    from megahit_tpu_torch.core import packing
+
+    os.makedirs(d, exist_ok=True)
+    rng = np.random.default_rng(7)
+    genome = rng.integers(0, 4, size=9000).astype(np.uint8)
+    genome[6000:6030] = genome[2000:2030]
+    p1, p2 = os.path.join(d, "r1.fa.gz"), os.path.join(d, "r2.fa.gz")
+    with gzip.open(p1, "wt") as f1, gzip.open(p2, "wt") as f2:
+        for i, s in enumerate(range(0, len(genome) - 250, 3)):
+            frag = genome[s: s + 250].copy()
+            m = rng.random(250) < 0.01
+            frag[m] = (frag[m] + rng.integers(1, 4, int(m.sum()))) % 4
+            f1.write(f">r{i}/1\n{packing.decode(frag[:100])}\n")
+            f2.write(f">r{i}/2\n"
+                     f"{packing.decode(packing.revcomp_codes(frag[-100:]))}"
+                     "\n")
+    return p1, p2
+
+
+def phase_out_of_core(data) -> None:
+    """--kmin-1pass on the isolate under a small -m, and -m 1000 on a
+    small two-rung read set, on cuda (and cpu)."""
+    out = os.path.join(DATA, "isolate_1pass")
+    t0 = time.monotonic()
+    # the k=21 edge file (solid edges and mercy) stays for phase [10]
+    _run_cli(["-1", data["r1"], "-2", data["r2"], "--k-list", "21",
+              "--kmin-1pass", "-m", str(ONEPASS_MEMORY), "--device", "cuda",
+              "-f", "--keep-tmp-files", "-o", out])
+    wall = time.monotonic() - t0
+    with open(os.path.join(out, "log")) as fh:
+        text = fh.read()
+    spill = re.search(r"bucketed build k=22: (\d+) rows spilled in "
+                      r"([0-9.]+)s, (\d+) rounds", text)
+    rounds = re.findall(r"bucketed round \d+/\d+ .*: (\d+) rows, (\d+) "
+                        r"edges, ([0-9.]+)s \(sort ([0-9.]+)s\)", text)
+    if not spill or int(spill.group(3)) < 4:
+        fail(f"[11] the 1-pass k=21 build took fewer than 4 rounds")
+    log(f"[11] isolate --k-list 21 --kmin-1pass -m {ONEPASS_MEMORY} on "
+        f"cuda: {wall:.1f}s wall; {spill.group(1)} rows spilled in "
+        f"{spill.group(2)}s, {spill.group(3)} rounds of "
+        + ", ".join(f"{r} rows {s}s (sort {t}s)" for r, _, s, t in rounds))
+    _log_stages("[11]", out)
+    if _contig_set(os.path.join(out, "final.contigs.fa")) != _contig_set(
+            os.path.join(DATA, "isolate_out", "final.contigs.fa")):
+        fail("[11] the 1-pass contig set differs from the 2-pass run's")
+    log("[11] 1-pass contig set equal to [6]'s")
+
+    p1, p2 = _repeat_pairs(os.path.join(DATA, "repeat_pairs"))
+    base = ["-1", p1, "-2", p2, "--k-list", "21,39", "--no-local", "-f",
+            "--keep-tmp-files"]
+    runs = {}
+    for name, extra in (("cuda", ["-m", "1000", "--device", "cuda"]),
+                        ("cpu", ["-m", "1000", "--device", "cpu"]),
+                        ("in_memory", ["--device", "cuda"])):
+        runs[name] = os.path.join(DATA, "repeat_pairs", name)
+        _run_cli(base + extra + ["-o", runs[name]])
+    for name in ("cuda", "cpu"):
+        for k in (21, 39):
+            if not os.path.isdir(os.path.join(runs[name], "tmp", f"k{k}",
+                                              "spill")):
+                fail(f"[11] -m 1000 on {name}: k={k} was not built out of "
+                     "core")
+    with open(os.path.join(runs["cuda"], "final.contigs.fa"), "rb") as f:
+        a = f.read()
+    with open(os.path.join(runs["cpu"], "final.contigs.fa"), "rb") as f:
+        b = f.read()
+    if a != b or not a:
+        fail("[11] -m 1000 final.contigs.fa differs between cuda and cpu")
+    if _contig_set(os.path.join(runs["cuda"], "final.contigs.fa")) != \
+            _contig_set(os.path.join(runs["in_memory"], "final.contigs.fa")):
+        fail("[11] -m 1000 contig set differs from the in-memory run's")
+    log(f"[11] repeat pairs --k-list 21,39 --no-local -m 1000: out of core "
+        f"at k=21 and k=39 on cuda and cpu, final.contigs.fa byte-identical "
+        f"({a.count(b'>')} contigs), contig set equal to the in-memory run's")
 
 
 def main() -> int:
@@ -706,6 +942,8 @@ def main() -> int:
     launches = phase_main_path(torch, data)
     phase_cpu_match(data)
     ladder = phase_ladder(torch, data)
+    phase_out_of_core(data)
+    phase_engines(torch)
     for kd in kern:
         kd["launches"] = launches[kd["name"]]
         kd["ladder_launches"] = ladder[kd["name"]]

@@ -47,10 +47,14 @@ def make_parser() -> argparse.ArgumentParser:
     h = p.add_argument_group("hardware options")
     h.add_argument("-m", "--memory", type=float, default=0.9,
                    help="memory budget: fraction of RAM if <= 1, else "
-                   "bytes; sizes the count batch (reference -m)")
+                   "bytes; sizes the count batch and routes graph builds "
+                   "above it out of core (reference -m)")
     h.add_argument("-t", "--num-cpu-threads", type=int, default=0,
                    help="host thread budget for CPU-bound stages "
                    "(0 = all logical CPUs)")
+    h.add_argument("--mem-flag", type=int, default=1, choices=[0, 1, 2],
+                   help="SdBG build memory mode: 0 minimum (more, "
+                   "smaller rounds), 1 moderate, 2 use all of -m")
     h.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="torch device of the count and graph passes "
                    "(default cuda; there is no silent CPU fallback)")
@@ -67,6 +71,7 @@ def make_parser() -> argparse.ArgumentParser:
     a.add_argument("--min-count", type=int, default=2)
     a.add_argument("--no-mercy", action="store_true")
     a.add_argument("--no-local", action="store_true")
+    a.add_argument("--kmin-1pass", action="store_true")
     a.add_argument("--prune-level", type=int, default=2)
     a.add_argument("--prune-depth", type=float, default=2)
     a.add_argument("--bubble-level", type=int, default=2)
@@ -224,6 +229,7 @@ def main(argv=None) -> int:
         min_contig_len=args.min_contig_len,
         min_count=args.min_count,
         no_mercy=args.no_mercy, no_local=args.no_local,
+        kmin_1pass=args.kmin_1pass,
         prune_level=args.prune_level, prune_depth=args.prune_depth,
         bubble_level=args.bubble_level,
         disconnect_ratio=args.disconnect_ratio,
@@ -231,7 +237,7 @@ def main(argv=None) -> int:
         cleaning_rounds=args.cleaning_rounds,
         max_tip_len=args.max_tip_len,
         keep_tmp_files=args.keep_tmp_files,
-        temp_dir=args.tmp_dir,
+        temp_dir=args.tmp_dir, mem_flag=args.mem_flag,
         test_mode=args.test_mode,
         continue_mode=args.continue_mode,
         verbose=args.verbose,

@@ -4,9 +4,9 @@ Faithful re-expression of the reference `assemble` subprogram
 (src/main_assemble.cpp:119-304): same pruning order, same defaults,
 same output routing (contigs / final standalone / addi / bubble_seq).
 
-The cleaning loop runs on the host engine (graph/cleaning.py), which
-megahit_tpu holds byte-identical to its device engine; the device engine
-is not ported yet. Counterpart of
+The cleaning loop runs on the device engine (graph/assemble_device.py)
+when the graph is on the card and on the host engine (graph/cleaning.py)
+on the CPU; the two are byte-identical. Counterpart of
 megahit_tpu/pipeline/assemble.py.
 """
 
@@ -17,7 +17,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..core import packing
-from ..graph import cleaning
+from ..graph import assemble_device, cleaning
 from ..graph.output import output_contigs
 from ..graph.sdbg import Sdbg, remove_tips_sdbg
 from ..graph.unitig import build_unitig_graph
@@ -55,9 +55,8 @@ class AssembleResult:
 
 
 class _HostEngine:
-    """graph/cleaning.py behind the engine interface of megahit_tpu's
-    device-resident cleaner (not ported yet), so that cleaner drops in
-    here."""
+    """graph/cleaning.py behind the engine interface shared with the
+    device-resident cleaner (graph/assemble_device.DeviceCleaner)."""
 
     def __init__(self, g):
         self.g = g
@@ -136,9 +135,25 @@ def assemble(sdbg: Sdbg, opt: AssembleOptions) -> AssembleResult:
     log.info("unitig graph size: %d", g.size)
     _mark("unitig_build")
 
-    if sdbg.device.type != "cpu":
-        log.info("cleaning on host (device engine not yet ported)")
-    eng = _HostEngine(g)
+    use_device = assemble_device.use_device_cleaning(sdbg.device) \
+        and g.size > 0
+    if use_device:
+        # Device depth accumulates in int32; exact iff every per-chain
+        # multiplicity sum < 2^31. Sufficient sound bound: the total
+        # valid multiplicity (every chain is a subset of the edge set).
+        total_mult = int(np.sum(sdbg.mult, dtype=np.int64,
+                                where=sdbg.valid[: sdbg.mult.shape[0]]))
+        if total_mult >= 2 ** 31:
+            log.warning(
+                "total edge multiplicity %d >= 2^31: device depth sums "
+                "could overflow int32; falling back to host cleaning "
+                "to keep byte parity", total_mult)
+            use_device = False
+    if use_device:
+        eng = assemble_device.DeviceCleaner(g)
+        log.info("cleaning on device (%s)", sdbg.device.type)
+    else:
+        eng = _HostEngine(g)
 
     careful = 0.2 if opt.careful_bubble else None
     bubble_records: list[tuple[str, float]] = []
@@ -229,7 +244,7 @@ def assemble(sdbg: Sdbg, opt: AssembleOptions) -> AssembleResult:
     prev = _t0
     split = []
     for name, t in _marks:
-        split.append(f"{name} {t - prev:.1f}s")
+        split.append(f"{name} {t - prev:.2f}s")
         prev = t
     log.info("assemble split: %s", ", ".join(split))
 

@@ -44,10 +44,12 @@ class Options:
     max_tip_len: int = -1
     no_mercy: bool = False
     no_local: bool = False
+    kmin_1pass: bool = False
     # output filtering
     min_contig_len: int = 200
     # resources (reference -m, src/megahit:165,596-609)
     memory: float = 0.9
+    mem_flag: int = 1  # SdBG build memory mode (src/megahit:189)
     num_cpu_threads: int = 0  # reference -t; 0 = all logical CPUs
     device: str = "cuda"  # torch device of the count and graph passes
     # misc
@@ -94,9 +96,9 @@ class Options:
         self.k_min = self.k_list[0]
         self.k_max = self.k_list[-1]
         if self.min_count == 1:
-            # reference: min_count==1 implies no mercy (src/megahit:
-            # 540-542); the 1-pass builder is not ported, so the count
-            # takes the 2-pass path
+            # reference: min_count==1 implies 1-pass + no mercy
+            # (src/megahit:540-542)
+            self.kmin_1pass = True
             self.no_mercy = True
         if not (self.pe1 or self.pe2 or self.pe12 or self.se
                 or self.test_mode or self.continue_mode):

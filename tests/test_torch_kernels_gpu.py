@@ -1,5 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the
-card. Every test is marked `gpu` and skips without a CUDA device.
+"""The port's CUDA kernels against their plain PyTorch versions, and its
+device cleaning engine against the host engine, on the card. Every test
+is marked `gpu` and skips without a CUDA device.
 
 This file imports neither JAX nor megahit_tpu, so it also runs on a
 machine that has only PyTorch; there, skip the JAX test setup in
@@ -13,6 +14,8 @@ import pytest
 import torch
 
 from megahit_tpu_torch.core import kernels as tkern
+
+import cleaning_cases
 
 pytestmark = pytest.mark.gpu
 
@@ -223,3 +226,124 @@ def test_merge_path_splits_kernel_matches_plain(n, run, tile, kind):
     got = sortnet.merge_path_splits(hi, lo, run, tile)
     want = sortnet.merge_path_splits_plain(hi, lo, run, tile)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+# ---------------------------------------------------------------------------
+# the device cleaning engine on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module", params=sorted(cleaning_cases.CASES))
+def cleaning_case(request):
+    """(name, Sdbg factory by device, AssembleOptions kwargs): the small
+    graphs of tests/cleaning_cases.py, counted on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run chip_smoke.py on the card)")
+    from megahit_tpu_torch.core import packing
+    from megahit_tpu_torch.graph.counter import count_canonical_kmers
+    from megahit_tpu_torch.graph.sdbg import sdbg_from_edges
+
+    reads, min_count, opt = cleaning_cases.CASES[request.param]()
+    flat, starts = packing.pack_many(reads)
+    keys, counts = count_canonical_kmers(flat, starts, 22, min_count,
+                                         device="cpu")
+
+    def factory(device):
+        return sdbg_from_edges(keys, counts, 22, device=device)
+
+    return request.param, factory, opt
+
+
+def _alive_signature(g):
+    a = np.asarray(g.alive)
+    return sorted(zip(g.length[a].tolist(), g.total_depth[a].tolist(),
+                      g.is_loop[a].tolist()))
+
+
+def _rounded(records):
+    return [(seq, round(depth, 4)) for seq, depth in records]
+
+
+def test_device_engine_passes_match_host_engine(cleaning_case):
+    """Every pass of the device engine on cuda against the host engine
+    (graph/cleaning.py) on the same graph on the CPU: the count, the
+    bubble records, the alive vertices and the edge validity (the host
+    engine may put a vertex in another slot)."""
+    from megahit_tpu_torch.graph import assemble_device as tad
+    from megahit_tpu_torch.graph.cleaning import infer_min_depth
+    from megahit_tpu_torch.graph.sdbg import remove_tips_sdbg
+    from megahit_tpu_torch.graph.unitig import build_unitig_graph
+    from megahit_tpu_torch.pipeline.assemble import _HostEngine
+
+    name, factory, _ = cleaning_case
+    hs, ds = factory("cpu"), factory("cuda")
+    k = hs.k - 1
+    remove_tips_sdbg(hs, 2 * k)
+    remove_tips_sdbg(ds, 2 * k)
+    min_depth = infer_min_depth(hs)
+    host = _HostEngine(build_unitig_graph(hs))
+    dev = tad.DeviceCleaner(build_unitig_graph(ds))
+    assert dev.state.valid.is_cuda
+    hrec, drec = [], []
+    removed = 0
+    for (step, hstep), (_, dstep) in zip(
+            cleaning_cases.engine_steps(host, k, min_depth, hrec),
+            cleaning_cases.engine_steps(dev, k, min_depth, drec)):
+        n_h, n_d = hstep(), dstep()
+        assert n_d == n_h, step
+        removed += n_h[0] if isinstance(n_h, tuple) else n_h
+        # the engines keep depths in float32 and float64: the records'
+        # strings are equal, their depths to the 4 decimals written out
+        assert _rounded(drec) == _rounded(hrec), step
+        gh, gd = host.to_host(), dev.to_host()
+        assert _alive_signature(gd) == _alive_signature(gh), step
+        np.testing.assert_array_equal(gd.sdbg.valid, gh.sdbg.valid, step)
+    assert removed > 0 or name in cleaning_cases.CLEAN
+
+
+def test_device_engine_cuda_matches_cpu_tensors(cleaning_case,
+                                                monkeypatch):
+    """The device engine on cuda against itself on CPU tensors, from the
+    same graph built by the torch passes on both devices: every
+    to_host() array equal after every pass (scatters with duplicate
+    indices included)."""
+    from megahit_tpu_torch import convert
+    from megahit_tpu_torch.graph import assemble_device as tad
+    from megahit_tpu_torch.graph import sdbg as tsd
+    from megahit_tpu_torch.graph.cleaning import infer_min_depth
+    from megahit_tpu_torch.graph.unitig import build_unitig_graph
+
+    monkeypatch.setattr(tsd, "host_graph_passes", lambda device: False)
+    _, factory, _ = cleaning_case
+    engines, recs = [], []
+    for device in ("cpu", "cuda"):
+        s = factory(device)
+        tsd.remove_tips_sdbg(s, 2 * (s.k - 1))
+        engines.append(tad.DeviceCleaner(build_unitig_graph(s)))
+        recs.append([])
+    k = s.k - 1
+    min_depth = infer_min_depth(s)
+    for (step, cstep), (_, gstep) in zip(
+            cleaning_cases.engine_steps(engines[0], k, min_depth, recs[0]),
+            cleaning_cases.engine_steps(engines[1], k, min_depth, recs[1])):
+        assert gstep() == cstep(), step
+        assert recs[1] == recs[0], step
+        gc, gg = engines[0].to_host(), engines[1].to_host()
+        for f in convert.UNITIG_FIELDS:
+            np.testing.assert_array_equal(np.asarray(getattr(gg, f)),
+                                          np.asarray(getattr(gc, f)),
+                                          f"{step}: {f}")
+
+
+def test_assemble_on_cuda_matches_cpu(cleaning_case):
+    """assemble() of a cuda graph (device engine) gives the records and
+    stats of the same graph on the CPU (host engine)."""
+    from megahit_tpu_torch.pipeline.assemble import (
+        AssembleOptions, assemble,
+    )
+
+    _, factory, opt = cleaning_case
+    want = assemble(factory("cpu"), AssembleOptions(**opt))
+    got = assemble(factory("cuda"), AssembleOptions(**opt))
+    assert cleaning_cases.records(got) == cleaning_cases.records(want)
+    assert got.stats == want.stats
