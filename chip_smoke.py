@@ -71,11 +71,30 @@ Phases, each printing its own lines:
    --no-local -m 1000 on cuda and cpu (byte-identical, built out of core
    at both k, contig set equal to the in-memory run's). The fixtures stop
    at k=21 under --no-local, so they cannot show the second rung.
+12. the stage subcommands (stage_cli.main) on the isolate: buildlib, then
+   megahit_tpu's manual chain (count -k 21 -m 2, seq2sdbg with mercy,
+   assemble --careful-bubble, local --kmax 41, iterate -k 21 -s 20,
+   seq2sdbg -k 41 --kmer-from 21 with the contigs and the local contigs,
+   assemble --is-final-round --output-standalone) on cuda, with the
+   kernel launch counters set to 0 just before the count stage and read
+   just after (each must be > 0) and both assemble stages cleaning on the
+   device, and the same chain on cpu: every artifact equal (.npz array by
+   array, the rest byte for byte); read2sdbg --need-mercy --memory
+   600000000 on cuda equal to count + seq2sdbg (valid keys and
+   multiplicities); the k=21 graph (4.07M rows) through
+   save_sharded(rows_per_shard=2^20) (at least 2 shards), load_sharded
+   and load_sharded_rows over two bucket ranges, equal; checkcpu and
+   checknative each print 1; the link probe's milliseconds (it must keep
+   the device engine); the fixtures
+   (--k-list 21,29 --no-local) on cuda with MEGAHIT_TPU_TORCH_DEBUG=1:
+   the invariant and finiteness checks run, and final.contigs.fa is
+   byte-identical to the run without. Each step's seconds are printed.
 9. (printed last) the script's total seconds.
 
 It then prints the card line, one JSON line with every kernel's numbers
-(kernels 1, 2 with the launches of [6] and, as ladder_launches, of
-[8]), and as its last line {"ok": true, "device": {...}}. Any failed phase
+(kernels 1, 2 with the launches of [6] and, as ladder_launches, of [8]
+and, as stage_launches, of [12]'s count stage), and as its last line
+{"ok": true, "device": {...}}. Any failed phase
 exits non-zero without that line. Without a GPU it exits non-zero at
 once.
 """
@@ -916,6 +935,229 @@ def phase_out_of_core(data) -> None:
         f"({a.count(b'>')} contigs), contig set equal to the in-memory run's")
 
 
+class _Messages(logging.Handler):
+    """Keeps every log message of the port (the stage CLI leaves the
+    logger's handlers to its caller)."""
+
+    def __init__(self):
+        super().__init__()
+        self.messages: list[str] = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def _stage(argv: list[str]) -> str:
+    """One stage_cli call in this process; its standard output."""
+    import contextlib
+    import io
+
+    from megahit_tpu_torch.stage_cli import main as stage
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = stage(argv)
+    if rc != 0:
+        fail(f"stage_cli {' '.join(argv)} exited {rc}")
+    return buf.getvalue()
+
+
+def _equal_artifacts(a: str, b: str) -> list[str]:
+    """Names of the files of directory a, each equal to its namesake in
+    b: .npz array by array (names, dtypes, shapes, values; the zip
+    members carry timestamps), any other file byte for byte."""
+    import numpy as np
+
+    names = sorted(os.listdir(a))
+    if names != sorted(os.listdir(b)):
+        fail(f"[12] artifact names differ: {names} != {sorted(os.listdir(b))}")
+    for name in names:
+        pa, pb = os.path.join(a, name), os.path.join(b, name)
+        if name.endswith(".npz"):
+            za, zb = np.load(pa), np.load(pb)
+            if sorted(za.files) != sorted(zb.files) or not all(
+                    za[f].dtype == zb[f].dtype and za[f].shape == zb[f].shape
+                    and np.array_equal(za[f], zb[f]) for f in za.files):
+                fail(f"[12] {name} differs between {a} and {b}")
+        else:
+            with open(pa, "rb") as fa, open(pb, "rb") as fb:
+                if fa.read() != fb.read():
+                    fail(f"[12] {name} differs between {a} and {b}")
+    return names
+
+
+def _stage_chain(torch, lib: str, out: str, dev: str, msgs) -> dict:
+    """megahit_tpu's manual stage chain (tests/test_stage_cli.py) on
+    `dev`, each step's seconds printed; on cuda the count's kernel
+    launches are counted from 0 and each kernel must launch."""
+    from megahit_tpu_torch.core import kernels
+
+    os.makedirs(out, exist_ok=True)
+
+    def p(name):
+        return os.path.join(out, name)
+
+    steps = [
+        ("count", ["count", "--lib", lib, "-k", "21", "-m", "2",
+                   "-o", p("k21")]),
+        ("seq2sdbg k=21", ["seq2sdbg", "--edges", p("k21.edges.npz"),
+                           "--need-mercy", "--lib", lib, "-k", "21",
+                           "-o", p("k21.sdbg.npz")]),
+        ("assemble k=21", ["assemble", "-s", p("k21.sdbg.npz"),
+                           "-o", p("k21"), "--careful-bubble"]),
+        ("local", ["local", "-c", p("k21.contigs.fa"), "--lib", lib,
+                   "--kmax", "41", "-o", p("k21.local.fa")]),
+        ("iterate", ["iterate", "-c", p("k21.contigs.fa"),
+                     "-b", p("k21.bubble_seq.fa"), "--lib", lib,
+                     "-k", "21", "-s", "20", "-o", p("k41")]),
+        ("seq2sdbg k=41", ["seq2sdbg", "--edges", p("k41.edges.npz"),
+                           "--contig", p("k21.contigs.fa"),
+                           "--local-contig", p("k21.local.fa"),
+                           "-k", "41", "--kmer-from", "21",
+                           "-o", p("k41.sdbg.npz")]),
+        ("assemble k=41", ["assemble", "-s", p("k41.sdbg.npz"),
+                           "-o", p("k41"), "--is-final-round",
+                           "--output-standalone"]),
+    ]
+    launches = None
+    del msgs.messages[:]
+    for name, argv in steps:
+        if name == "count" and dev == "cuda":
+            kernels.canonical_all_kmers.launches = 0
+            kernels.count_sorted_runs.launches = 0
+        t0 = time.monotonic()
+        said = _stage(["--device", dev] + argv).strip().splitlines()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        secs = time.monotonic() - t0
+        if name == "count" and dev == "cuda":
+            launches = {
+                "canonical_all_kmers": kernels.canonical_all_kmers.launches,
+                "count_sorted_runs": kernels.count_sorted_runs.launches}
+        log(f"[12] {dev} {name}: {secs:.2f}s ({said[-1] if said else ''})")
+    on_device = sum(m == "cleaning on device (cuda)" for m in msgs.messages)
+    if on_device != (2 if dev == "cuda" else 0):
+        fail(f"[12] {dev}: {on_device} of 2 assemble stages cleaned on the "
+             "device")
+    return launches
+
+
+def phase_stages(torch, data) -> dict:
+    """[12] the stage subcommands on the isolate, cuda against cpu, with
+    read2sdbg, the sharded graph files, checkcpu/checknative, the link
+    probe and debug mode."""
+    import numpy as np
+
+    from megahit_tpu_torch.graph.sdbg import Sdbg
+    from megahit_tpu_torch.utils import debug, devlink
+    from megahit_tpu_torch.utils.log import get_logger, setup_logging
+
+    setup_logging()  # console only
+    msgs = _Messages()
+    get_logger().addHandler(msgs)
+    root = os.path.join(DATA, "stages")
+    lib = os.path.join(root, "lib.npz")
+    os.makedirs(root, exist_ok=True)
+    try:
+        t0 = time.monotonic()
+        _stage(["buildlib", "-1", data["r1"], "-2", data["r2"], "-o", lib])
+        log(f"[12] buildlib: {time.monotonic() - t0:.2f}s")
+        cu, cp = os.path.join(root, "cuda"), os.path.join(root, "cpu")
+        t0 = time.monotonic()
+        launches = _stage_chain(torch, lib, cu, "cuda", msgs)
+        t1 = time.monotonic()
+        _stage_chain(torch, lib, cp, "cpu", msgs)
+        t2 = time.monotonic()
+        names = _equal_artifacts(cu, cp)
+        log(f"[12] stage chain: cuda {t1 - t0:.1f}s, cpu {t2 - t1:.1f}s; "
+            f"{len(names)} artifacts equal (.npz array by array, the rest "
+            f"byte for byte); count launches {launches}; "
+            "both cuda assemble stages cleaned on the device")
+        if min(launches.values()) <= 0:
+            fail(f"[12] a kernel was not launched by the count stage: "
+                 f"{launches}")
+    finally:
+        get_logger().removeHandler(msgs)
+
+    # read2sdbg (1-pass, out of core) == count + seq2sdbg
+    t0 = time.monotonic()
+    said = _stage(["--device", "cuda", "read2sdbg", "--lib", lib, "-k", "21",
+                   "-m", "2", "--need-mercy", "--memory", str(ONEPASS_MEMORY),
+                   "-o", os.path.join(root, "r2s.sdbg.npz")])
+    secs = time.monotonic() - t0
+    a = Sdbg.load(os.path.join(cu, "k21.sdbg.npz"), device="cuda")
+    b = Sdbg.load(os.path.join(root, "r2s.sdbg.npz"), device="cuda")
+    if not (np.array_equal(a.keys[a.valid], b.keys[b.valid])
+            and np.array_equal(a.mult[a.valid], b.mult[b.valid])):
+        fail("[12] read2sdbg differs from count + seq2sdbg")
+    log(f"[12] cuda read2sdbg --memory {ONEPASS_MEMORY}: {secs:.2f}s "
+        f"({said.strip()}); valid keys and multiplicities equal to count + "
+        f"seq2sdbg ({a.num_valid()} edges)")
+
+    # the sharded graph files
+    t0 = time.monotonic()
+    shards = os.path.join(root, "shards")
+    a.save_sharded(shards, rows_per_shard=1 << 20)
+    with open(os.path.join(shards, "sdbg_manifest.json")) as fh:
+        n_shards = len(json.load(fh)["shards"])
+    back = Sdbg.load_sharded(shards, device="cuda")
+    e = a.real
+    ok = back.real == e and all(
+        np.array_equal(x[:e], y[:e]) for x, y in
+        ((a.keys, back.keys), (a.mult, back.mult), (a.valid, back.valid)))
+    parts = [Sdbg.load_sharded_rows(shards, lo, hi)
+             for lo, hi in ((0, 1 << 15), (1 << 15, 1 << 16))]
+    ok = ok and all(np.array_equal(np.concatenate([q[i] for q in parts]),
+                                   x[:e]) for i, x in
+                    enumerate((a.keys, a.mult, a.valid)))
+    if n_shards < 2 or not ok:
+        fail(f"[12] sharded round trip: {n_shards} shards, equal {ok}")
+    log(f"[12] k=21 graph ({e} rows) through save_sharded(rows_per_shard="
+        f"2^20): {n_shards} shards, load_sharded and load_sharded_rows over "
+        f"buckets [0, 2^15) + [2^15, 2^16) equal "
+        f"({time.monotonic() - t0:.2f}s)")
+
+    # introspection and the link probe
+    t0 = time.monotonic()
+    cc = _stage(["checkcpu"]).strip().splitlines()[-1]
+    cn = _stage(["checknative"]).strip().splitlines()[-1]
+    if cc != "1" or cn != "1":
+        fail(f"[12] checkcpu printed {cc}, checknative {cn}")
+    ms = devlink.link_latency_ms()
+    log(f"[12] checkcpu 1, checknative 1 ({time.monotonic() - t0:.2f}s); "
+        f"link_latency_ms {ms:.4f}, latency_bound_link "
+        f"{devlink.latency_bound_link()}")
+    if devlink.latency_bound_link():
+        fail("[12] the link probe routes cleaning off the card")
+
+    # debug mode on the fixtures
+    fx = os.path.join(DATA, "fixtures", "debug")
+    args = ["--test", "--device", "cuda", "--k-list", "21,29", "--no-local",
+            "-f"]
+    t0 = time.monotonic()
+    _run_cli(args + ["-o", os.path.join(fx, "plain")])
+    before = dict(debug.CHECKS)
+    os.environ["MEGAHIT_TPU_TORCH_DEBUG"] = "1"
+    try:
+        _run_cli(args + ["-o", os.path.join(fx, "debug")])
+    finally:
+        del os.environ["MEGAHIT_TPU_TORCH_DEBUG"]
+        debug._finite_armed = False
+    ran = {k: debug.CHECKS[k] - before[k] for k in before}
+    with open(os.path.join(fx, "plain", "final.contigs.fa"), "rb") as f:
+        want = f.read()
+    with open(os.path.join(fx, "debug", "final.contigs.fa"), "rb") as f:
+        got = f.read()
+    if got != want or min(ran.values()) <= 0:
+        fail(f"[12] debug mode: checks run {ran}, contigs equal "
+             f"{got == want}")
+    log(f"[12] fixtures --k-list 21,29 --no-local on cuda with "
+        f"MEGAHIT_TPU_TORCH_DEBUG=1: checks run {ran}, final.contigs.fa "
+        f"byte-identical to the run without ({time.monotonic() - t0:.1f}s "
+        "both)")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -944,9 +1186,11 @@ def main() -> int:
     ladder = phase_ladder(torch, data)
     phase_out_of_core(data)
     phase_engines(torch)
+    stages = phase_stages(torch, data)
     for kd in kern:
         kd["launches"] = launches[kd["name"]]
         kd["ladder_launches"] = ladder[kd["name"]]
+        kd["stage_launches"] = stages[kd["name"]]
     kern += sort_kern
     mods = sorted(m for m in sys.modules
                   if m == "jax" or m.startswith("jax.")

@@ -9,10 +9,12 @@ runs two CUDA kernels written for Hopper (``core/kernels.py``,
 is torch tensor passes and host numpy with the same native C++ helpers.
 
 It runs the default multi-k pipeline, reads to ``final.contigs.fa``:
-build lib -> count -> mercy -> SdBG -> tip removal, unitigs, host
-cleaning engine, contig output at k_min, then per rung local assembly,
-iterate and the contig-union graph. Not ported yet: the device cleaning
-engine, the out-of-core builder, multi-GPU, the stage subcommands.
+build lib -> count -> mercy -> SdBG -> tip removal, unitigs, cleaning
+(on the card, or the host engine on the CPU), contig output at k_min,
+then per rung local assembly, iterate and the contig-union graph; graphs
+above the -m budget build out of core. Each stage also runs on its own
+(``stage_cli.py``), with the toolkit in ``tools.py``. Not ported yet:
+multi-GPU.
 
 Package layout (as in megahit_tpu):
   core/      packing, k-mer ops, the kernels' wrappers and plain versions
@@ -23,7 +25,10 @@ Package layout (as in megahit_tpu):
   localasm/  read mapper, mini-assembler, local assembly
   native/    host C++ helpers (g++ at first use), loaded with ctypes
   pipeline/  multi-k driver, options, checkpointing
-  utils/     logging, timers, host thread budget, histogram
+  utils/     logging, timers, host thread budget, histogram, debug mode,
+             the link probe
+  stage_cli.py  per-stage subcommands (buildlib, count, seq2sdbg, ...)
+  tools.py   contig2fastg, filterbylen, readstat
   convert.py megahit_tpu state (as numpy arrays) -> this package's objects
 """
 

@@ -195,6 +195,13 @@ def main(argv=None) -> int:
     from megahit_tpu_torch.utils.threads import set_num_threads
 
     set_num_threads(args.num_cpu_threads)
+
+    from megahit_tpu_torch.utils.debug import (
+        debug_enabled, enable_debug_checks,
+    )
+
+    if debug_enabled():
+        enable_debug_checks()
     if args.no_hw_accel:
         args.device = "cpu"
 

@@ -41,6 +41,7 @@ mesh-sharded path).
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass
 
@@ -48,6 +49,8 @@ import numpy as np
 import torch
 
 from ..core import packing
+from ..utils.debug import check_finite
+from ..utils.devlink import latency_bound_link
 from ..utils.log import get_logger
 from .output import _last_base
 from .sdbg import Sdbg, simple_path_links
@@ -61,9 +64,18 @@ NULL = -1
 
 def use_device_cleaning(device) -> bool:
     """True when the cleaning loop runs on this engine: the graph's
-    device is not the CPU (on the CPU the host engine, graph/cleaning.py,
-    runs it). Tests patch this to run the engine on CPU tensors."""
-    return torch.device(device).type != "cpu"
+    device is a card on a latency-cheap link (utils/devlink.py). On the
+    CPU the host engine (graph/cleaning.py) runs it, and so it does for
+    a card behind a remote link, where each of the engine's many small
+    passes would pay a round trip. MEGAHIT_TPU_TORCH_DEVICE_CLEAN=1/0
+    forces or forbids the engine (=1 on a CPU graph runs it on CPU
+    tensors)."""
+    env = os.environ.get("MEGAHIT_TPU_TORCH_DEVICE_CLEAN")
+    if env is not None:
+        return env == "1"
+    if torch.device(device).type == "cpu":
+        return False
+    return not latency_bound_link()
 
 
 # ---------------------------------------------------------------------------
@@ -325,7 +337,8 @@ def _refresh(st: DevStatic, s: DevState, to_delete, to_dfwd, to_drc,
 
 
 def _avg_depth(s: DevState):
-    return s.depth.to(F32) / s.length.clamp(min=1)
+    return check_finite("average depth",
+                        s.depth.to(F32) / s.length.clamp(min=1))
 
 
 def _tips_marks(st, s, end0, end1, thre):
@@ -363,7 +376,7 @@ def _weak_marks(st, s, end0, end1, local_ratio, vc: int):
         act = ~skip & (outdeg[:, strand] > 1) & s.alive
         pres = present[:, strand] & act[:, None]
         depths = torch.where(pres, avg[nbr[:, strand].clamp(min=0)], 0.0)
-        total = _sum4(depths)
+        total = check_finite("weak-link depth sum", _sum4(depths))
         weak = pres & (depths <= local_ratio * total[:, None])
         for j in range(4):
             sel = weak[:, j]
@@ -405,8 +418,10 @@ def _lld_marks(st, s, end0, end1, min_depth, max_len, local_width,
             avg[nb] * local_width * pres)
         edges = edges + _sum4(contrib_e)
         total = total + _sum4(contrib_d)
-    mean = torch.where(edges > 0, total / edges.clamp(min=1), 0.0)
-    threshold = torch.minimum(min_depth, mean * local_ratio)
+    mean = check_finite("local depth mean", torch.where(
+        edges > 0, total / edges.clamp(min=1), 0.0))
+    threshold = check_finite("local depth threshold",
+                             torch.minimum(min_depth, mean * local_ratio))
     remove = cand & (avg < threshold)
     is_changed = (cand & (min_depth < mean * local_ratio)).any() \
         | remove.any()

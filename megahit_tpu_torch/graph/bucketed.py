@@ -24,8 +24,10 @@ multiset only ever exists on disk. The spill pass is double-buffered
 (host partition+write overlaps the next chunk's extraction) and round
 reads prefetch under the sorts.
 
-Counterpart of megahit_tpu/graph/bucketed.py (without its mesh sorts
-and sharded output).
+With shard_dir, each round's edges also stream to the sharded graph
+files (graph/sdbg.py ShardedSdbgWriter).
+
+Counterpart of megahit_tpu/graph/bucketed.py (without its mesh sorts).
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ from ..core import kmerops
 from ..utils.device import resolve_device
 from ..utils.log import get_logger
 from .counter import KMAX_MUL, _chunks, as_pool
-from .sdbg import Sdbg, _make_sdbg, sdbg_from_edges
+from .sdbg import Sdbg, ShardedSdbgWriter, _make_sdbg, sdbg_from_edges
 
 N_BUCKETS = 256  # spill files: top 8 bits of word0 = first 4 bases
 
@@ -122,10 +124,12 @@ class SpillSet:
                 os.remove(p)
 
 
-# Performance cap on rows per round, independent of the -m budget: a
-# single giant round defeats the spill-read prefetch overlap. The
-# budget remains the hard memory bound; this only splits finer.
-_ROUND_CAP_ROWS = 1 << 26
+def round_cap_rows() -> int:
+    """Performance cap on rows per round, independent of the -m budget:
+    a single giant round defeats the spill-read prefetch overlap. The
+    budget remains the hard memory bound; this only splits finer.
+    MEGAHIT_TPU_TORCH_ROUND_CAP_ROWS overrides the default 2^26."""
+    return int(os.environ.get("MEGAHIT_TPU_TORCH_ROUND_CAP_ROWS", 1 << 26))
 
 
 def plan_rounds(counts: np.ndarray, budget_rows: int
@@ -134,7 +138,7 @@ def plan_rounds(counts: np.ndarray, budget_rows: int
     (reference Lv1FindEndBuckets, base_engine.cpp:254-281). A single
     bucket larger than the budget becomes its own (oversized) round."""
     log = get_logger()
-    budget_rows = min(budget_rows, max(_ROUND_CAP_ROWS, 1 << 14))
+    budget_rows = min(budget_rows, max(round_cap_rows(), 1 << 14))
     rounds = []
     lo = 0
     while lo < N_BUCKETS:
@@ -311,6 +315,7 @@ def build_sdbg_bucketed(
     mult_mode: str = "max",
     min_count: int = 1,
     device="cuda",
+    shard_dir: str | None = None,
 ) -> Sdbg:
     """Build the SdBG from any mix of PoolSource/EdgeSource inputs with
     a bounded in-memory working set (<= ~budget_rows rows per device
@@ -325,6 +330,11 @@ def build_sdbg_bucketed(
                 both-strand group size of edge e equals occ(e) +
                 occ(rc(e)), i.e. the canonical k-mer count, so counts
                 match the 2-pass counter exactly).
+
+    shard_dir: when set, each round's edges ALSO stream to a
+    ShardedSdbgWriter there (per-shard files + bucket manifest,
+    reference sdbg_writer.h:19-63) - rounds are bucket ranges in
+    prefix order, so the shard layout falls straight out of the build.
     """
     device = resolve_device(device)
     log = get_logger()
@@ -375,6 +385,9 @@ def build_sdbg_bucketed(
     # so concatenating their edges yields the globally sorted edge set
     all_keys = []
     all_mult = []
+    shard_writer = None
+    if shard_dir is not None:
+        shard_writer = ShardedSdbgWriter(shard_dir, k)
     # prefetch each round's spill files while the previous round sorts
     with ThreadPoolExecutor(max_workers=1) as ex:
         nxt_fut = ex.submit(spill.read_range, *rounds[0])
@@ -421,6 +434,8 @@ def build_sdbg_bucketed(
                     edges = edges[solid]
                     mult = mult[solid]
             del srows
+            if shard_writer is not None:
+                shard_writer.append(edges, mult)
             all_keys.append(edges)
             all_mult.append(mult)
             log.info("bucketed round %d/%d (buckets %d-%d): %d rows, "
@@ -428,6 +443,8 @@ def build_sdbg_bucketed(
                      lo, hi - 1, len(keys), len(edges),
                      time.monotonic() - t_round, t_sort)
     spill.cleanup()
+    if shard_writer is not None:
+        shard_writer.finalize()
 
     keys = np.concatenate(all_keys, axis=0) if all_keys else \
         np.zeros((0, w), np.uint32)

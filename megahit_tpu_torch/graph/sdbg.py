@@ -24,17 +24,25 @@ device its whole-graph passes run on. On CUDA the tip and simple-path
 passes are torch ops on that device; on the CPU they are the host
 engine's sparse walks and native chain walks (``host_graph_passes``).
 
-Counterpart of megahit_tpu/graph/sdbg.py (the in-memory builders; the
-out-of-core bucketed builder is not ported).
+Besides the one-file formats (`Sdbg.save`/`load`), a graph persists as
+per-shard files with a bucket manifest (`save_sharded`,
+`ShardedSdbgWriter`), in megahit_tpu's "sharded-v1" layout.
+
+Counterpart of megahit_tpu/graph/sdbg.py (the out-of-core bucketed
+builder is graph/bucketed.py).
 """
 
 from __future__ import annotations
+
+import json
+import os
 
 import numpy as np
 import torch
 
 from ..core import kmerops
 from ..utils.device import resolve_device
+from ..utils.devlink import latency_bound_link
 from ..utils.log import get_logger
 from .counter import KMAX_MUL, _pow2_pad
 
@@ -203,6 +211,9 @@ class Sdbg:
             self._ref_rank = rank
         return self._ref_rank
 
+    def num_valid(self) -> int:
+        return int(self.valid.sum())
+
     def save(self, path: str, fmt: str = "compact") -> None:
         """Persist the graph (the analogue of the reference's
         .sdbg.{tid} + .sdbg_info shards, sdbg_writer.cpp:25-80 -
@@ -332,6 +343,95 @@ class Sdbg:
             svalid = np.concatenate([svalid, np.zeros(padn, bool)])
         return cls(k=k, keys=skeys, mult=smult, valid=svalid, real=e,
                    device=device)
+
+    # -- sharded persistence (reference SdbgWriter/SdbgMeta) --------
+
+    def save_sharded(self, dir_path: str,
+                     rows_per_shard: int = 1 << 24) -> None:
+        """Write the graph as per-shard files + a bucket manifest (the
+        analogue of the reference's thread-sharded writer with bucket
+        records, sdbg_writer.h:19-63, sdbg_meta.cpp:51-75). Shard
+        boundaries sit on 16-bit key-prefix bucket boundaries; runs
+        share 2(k-1) >= 16 prefix bits, so no shard ever splits a
+        navigation run - a bucket range is a self-contained subgraph
+        slice loadable via load_sharded_rows."""
+        e = self.real
+        w = ShardedSdbgWriter(dir_path, self.k,
+                              rows_per_shard=rows_per_shard)
+        step = max(rows_per_shard, 1)
+        lo = 0
+        while lo < e:
+            hi = min(e, lo + step)
+            # snap the cut to the next bucket boundary
+            if hi < e:
+                b = int(self.keys[hi - 1, 0] >> np.uint32(16))
+                while hi < e and int(
+                        self.keys[hi, 0] >> np.uint32(16)) == b:
+                    hi += 1
+            w.append(self.keys[lo:hi], self.mult[lo:hi],
+                     self.valid[lo:hi])
+            lo = hi
+        w.finalize()
+
+    @classmethod
+    def load_sharded(cls, dir_path: str, device="cuda") -> "Sdbg":
+        """Load a sharded graph whole; load_sharded_rows reads a bucket
+        range instead."""
+        device = resolve_device(device)
+        man = _read_manifest(dir_path)
+        k = int(man["k"])
+        e = int(man["n_real"])
+        if e == 0:
+            return _make_sdbg(
+                np.zeros((0, kmerops.words_per_kmer(k)), np.uint32),
+                np.zeros(0, np.int32), k, device=device)
+        w = kmerops.words_per_kmer(k)
+        cap = _pow2_pad(max(e, 16))
+        keys = np.full((cap, w), 0xFFFFFFFF, np.uint32)
+        mult = np.zeros(cap, np.int32)
+        valid = np.zeros(cap, bool)
+        for sh in man["shards"]:
+            z = np.load(os.path.join(dir_path, sh["file"]))
+            r0, n = int(sh["row_start"]), int(sh["rows"])
+            keys[r0:r0 + n] = z["keys"]
+            mult[r0:r0 + n] = z["mult"].astype(np.int32)
+            valid[r0:r0 + n] = np.unpackbits(
+                z["valid"], count=n).astype(bool)
+        return cls(k=k, keys=keys, mult=mult, valid=valid, real=e,
+                   device=device)
+
+    @staticmethod
+    def load_sharded_rows(dir_path: str, bucket_lo: int,
+                          bucket_hi: int
+                          ) -> tuple[np.ndarray, np.ndarray,
+                                     np.ndarray, int]:
+        """Rows of 16-bit prefix buckets [bucket_lo, bucket_hi): the
+        redistribution primitive - a reader opens only the shards
+        overlapping its bucket range; nothing materializes the whole
+        graph. Returns (keys, mult, valid, global_row_offset)."""
+        man = _read_manifest(dir_path)
+        bc = np.load(os.path.join(dir_path, man["bucket_counts"]))
+        boffs = np.zeros(len(bc) + 1, np.int64)
+        np.cumsum(bc, out=boffs[1:])
+        want_lo, want_hi = int(boffs[bucket_lo]), int(boffs[bucket_hi])
+        w = kmerops.words_per_kmer(int(man["k"]))
+        keys = np.empty((want_hi - want_lo, w), np.uint32)
+        mult = np.empty(want_hi - want_lo, np.int32)
+        valid = np.empty(want_hi - want_lo, bool)
+        for sh in man["shards"]:
+            r0, n = int(sh["row_start"]), int(sh["rows"])
+            lo = max(r0, want_lo)
+            hi = min(r0 + n, want_hi)
+            if lo >= hi:
+                continue
+            z = np.load(os.path.join(dir_path, sh["file"]))
+            keys[lo - want_lo:hi - want_lo] = z["keys"][lo - r0:hi - r0]
+            mult[lo - want_lo:hi - want_lo] = \
+                z["mult"][lo - r0:hi - r0].astype(np.int32)
+            valid[lo - want_lo:hi - want_lo] = np.unpackbits(
+                z["valid"], count=n).astype(bool)[lo - r0:hi - r0]
+        return keys, mult, valid, want_lo
+
     def invalidate(self, mask: np.ndarray) -> None:
         """Invalidate edges in `mask` AND their reverse complements,
         keeping validity rc-symmetric (the reference walks both strands
@@ -354,6 +454,107 @@ class Sdbg:
             return
         self.valid[idx] = False
         self.valid[self.rc[idx]] = False
+
+
+# ---------------------------------------------------------------------------
+# sharded graph files
+# ---------------------------------------------------------------------------
+
+
+_MANIFEST_NAME = "sdbg_manifest.json"
+
+
+def _read_manifest(dir_path: str) -> dict:
+    with open(os.path.join(dir_path, _MANIFEST_NAME)) as fh:
+        return json.load(fh)
+
+
+class ShardedSdbgWriter:
+    """Per-shard graph files + a bucket manifest ("sharded-v1", the
+    format megahit_tpu writes) - the analogue of the reference's
+    thread-sharded SdbgWriter whose SdbgMeta bucket records enable
+    streamed, merged loading (sdbg_writer.h:19-63, sdbg_meta.cpp:51-75).
+
+    Files: sdbg.shard.NNNNN.npz (keys, mult as uint16, valid through
+    packbits), bucket_counts.npy (rows per 16-bit key prefix) and
+    sdbg_manifest.json.
+
+    Rows must arrive in globally sorted order, each append starting on
+    a 16-bit key-prefix bucket boundary (the bucketed builder's rounds
+    are bucket ranges in prefix order, so appending one round at a
+    time satisfies this). A shard flushes once it holds at least
+    rows_per_shard rows; flushes happen only at append boundaries, so
+    shard boundaries are bucket boundaries and a bucket range is a
+    self-contained slice (Sdbg.load_sharded_rows)."""
+
+    def __init__(self, dir_path: str, k: int,
+                 rows_per_shard: int = 1 << 24):
+        os.makedirs(dir_path, exist_ok=True)
+        self.dir = dir_path
+        self.k = int(k)
+        self.rows_per_shard = int(rows_per_shard)
+        self._pend_keys: list[np.ndarray] = []
+        self._pend_mult: list[np.ndarray] = []
+        self._pend_valid: list[np.ndarray] = []
+        self._pend_rows = 0
+        self._row_off = 0
+        self._shards: list[dict] = []
+        self._bucket_counts = np.zeros(65536, np.int64)
+        self._done = False
+
+    def append(self, keys: np.ndarray, mult: np.ndarray,
+               valid: np.ndarray | None = None) -> None:
+        n = len(keys)
+        if n == 0:
+            return
+        if valid is None:
+            valid = np.ones(n, dtype=bool)
+        b16 = (keys[:, 0] >> np.uint32(16)).astype(np.int64)
+        self._bucket_counts += np.bincount(b16, minlength=65536)
+        self._pend_keys.append(np.ascontiguousarray(keys))
+        self._pend_mult.append(np.asarray(mult, dtype=np.uint16))
+        self._pend_valid.append(np.asarray(valid, dtype=bool))
+        self._pend_rows += n
+        if self._pend_rows >= self.rows_per_shard:
+            self._flush()
+
+    def _flush(self) -> None:
+        if self._pend_rows == 0:
+            return
+        keys = np.concatenate(self._pend_keys, axis=0)
+        mult = np.concatenate(self._pend_mult)
+        valid = np.concatenate(self._pend_valid)
+        i = len(self._shards)
+        name = f"sdbg.shard.{i:05d}.npz"
+        np.savez(os.path.join(self.dir, name), keys=keys, mult=mult,
+                 valid=np.packbits(valid))
+        self._shards.append({
+            "file": name,
+            "rows": int(len(keys)),
+            "row_start": int(self._row_off),
+            "bucket_lo": int(keys[0, 0] >> np.uint32(16)),
+            "bucket_hi": int(keys[-1, 0] >> np.uint32(16)) + 1,
+        })
+        self._row_off += len(keys)
+        self._pend_keys, self._pend_mult, self._pend_valid = [], [], []
+        self._pend_rows = 0
+
+    def finalize(self) -> None:
+        if self._done:
+            return
+        self._flush()
+        np.save(os.path.join(self.dir, "bucket_counts.npy"),
+                self._bucket_counts)
+        man = {
+            "format": "sharded-v1",
+            "k": self.k,
+            "n_real": int(self._row_off),
+            "bucket_counts": "bucket_counts.npy",
+            "shards": self._shards,
+        }
+        with open(os.path.join(self.dir, _MANIFEST_NAME), "w") as fh:
+            json.dump(man, fh, indent=1)
+        self._done = True
 
 
 # ---------------------------------------------------------------------------
@@ -714,6 +915,18 @@ def window_edge_multiset(
     return keys, mults
 
 
+def use_device_build(device) -> bool:
+    """True when a contig-union build keeps its window multiset on the
+    device through the dedup (build_sdbg_device_resident): on a card,
+    the choice megahit_tpu makes on an accelerator backend. On the CPU
+    the union is window_edge_multiset + _finalize_sdbg.
+    MEGAHIT_TPU_TORCH_DEVICE_BUILD=1/0 forces either route (=1 on the
+    CPU runs the device-resident route on CPU tensors)."""
+    env = os.environ.get("MEGAHIT_TPU_TORCH_DEVICE_BUILD")
+    return env == "1" or (env != "0"
+                          and torch.device(device).type != "cpu")
+
+
 def build_sdbg_device_resident(
     flat_codes,
     starts: np.ndarray,
@@ -831,6 +1044,8 @@ def _make_sdbg(edges, mult, k, rc_idx=None, device="cuda") -> Sdbg:
     padding (shared by the in-memory finalize and the out-of-core
     bucketed builder). Navigation (run_start/nxt_link/rc) derives
     lazily from the sorted keys; a precomputed rc may be injected."""
+    from ..utils.debug import check_sdbg_invariants, debug_enabled
+
     e = len(edges)
     w = kmerops.words_per_kmer(k)
     if rc_idx is not None and e:
@@ -882,6 +1097,8 @@ def _make_sdbg(edges, mult, k, rc_idx=None, device="cuda") -> Sdbg:
         real=e,
         device=device,
     )
+    if debug_enabled():
+        check_sdbg_invariants(sdbg)
     return sdbg
 
 
@@ -1167,8 +1384,12 @@ def _remove_tips_sdbg_host(sdbg: Sdbg, max_tip_len: int) -> int:
 def host_graph_passes(device) -> bool:
     """True when the latency-bound graph passes (tips, unitig links and
     ranks, chain walks) run on the host engine: the graph's device is
-    the CPU. On CUDA they run as whole-graph torch passes."""
-    return torch.device(device).type == "cpu"
+    the CPU, or a card behind a latency-expensive link
+    (utils/devlink.py) where per-pass round trips dwarf the pass
+    compute. On a local card they run as whole-graph torch passes."""
+    if torch.device(device).type == "cpu":
+        return True
+    return latency_bound_link()
 
 
 def remove_tips_sdbg(sdbg: Sdbg, max_tip_len: int) -> int:

@@ -97,6 +97,12 @@ def _open(path: str):
     return open(path, "rb")
 
 
+def iter_fastx(path: str) -> Iterator[FastxRecord]:
+    """Stream records from a (possibly compressed) FASTA or FASTQ file."""
+    with _open(path) as fh:
+        yield from _iter_fastx_stream(io.BufferedReader(fh, 1 << 20))
+
+
 def _iter_fastx_stream(fh) -> Iterator[FastxRecord]:
     first = fh.peek(1)[:1]
     if not first:

@@ -30,7 +30,7 @@ from ..graph.counter import count_canonical_kmers
 from ..graph.mercy import find_mercy_edges
 from ..graph.sdbg import (
     Sdbg, _finalize_sdbg, build_sdbg_device_resident, sdbg_from_edges,
-    window_edge_multiset,
+    use_device_build, window_edge_multiset,
 )
 from ..io.contig_io import (
     FLAG_LOOP, FLAG_STANDALONE, ContigRecord, read_contigs, write_contigs,
@@ -316,7 +316,8 @@ class Pipeline:
         local from the previous k. On cuda the window multiset stays on
         the card through the dedup (build_sdbg_device_resident); on the
         CPU it is window_edge_multiset + _finalize_sdbg, the choice by
-        backend megahit_tpu makes."""
+        backend megahit_tpu makes (sdbg.use_device_build, which
+        MEGAHIT_TPU_TORCH_DEVICE_BUILD overrides)."""
         km = k + 1  # edge length
         dev = self.device
         prefix = self.graph_prefix(k)
@@ -383,7 +384,7 @@ class Pipeline:
                 batch_windows=self._batch_windows(), device=dev)
 
         if seqs:
-            if dev.type == "cuda":
+            if use_device_build(dev):
                 return build_sdbg_device_resident(
                     flat, starts, seq_mults, km, edge_keys=edge_keys,
                     edge_counts=edge_counts,

@@ -27,6 +27,8 @@ from megahit_tpu_torch.core import kmerops as tkmer
 from megahit_tpu_torch.graph import bucketed as bk
 from megahit_tpu_torch.io.contig_io import read_contigs
 
+import torch_test_env  # noqa: F401
+
 RNG = np.random.default_rng(42)
 
 

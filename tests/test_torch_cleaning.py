@@ -30,6 +30,8 @@ from megahit_tpu_torch.pipeline import assemble as tasm
 
 from cleaning_cases import CASES, CLEAN, engine_steps, records
 
+import torch_test_env  # noqa: F401
+
 
 @pytest.fixture(scope="module", params=sorted(CASES))
 def case(request):

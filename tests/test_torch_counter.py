@@ -15,6 +15,8 @@ from megahit_tpu_torch import convert
 from megahit_tpu_torch.core import packing
 from megahit_tpu_torch.graph import counter as tc
 
+import torch_test_env  # noqa: F401
+
 
 def _pool(seed, n_reads, genome_len=3000, err=0.01):
     """Reads of 30-140 bp from both strands of a random genome, with

@@ -27,6 +27,8 @@ from megahit_tpu_torch.graph import output as tout
 from megahit_tpu_torch.graph import sdbg as ts
 from megahit_tpu_torch.graph import unitig as tu
 
+import torch_test_env  # noqa: F401
+
 SDBG_FIELDS = ("keys", "mult", "valid", "rc", "run_start", "nxt_link",
                "rvc")
 

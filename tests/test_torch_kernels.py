@@ -19,6 +19,8 @@ from megahit_tpu.core import pallas_kernels as pk
 from megahit_tpu_torch.core import kernels as tkern
 from megahit_tpu_torch.core import kmerops as tk
 
+import torch_test_env  # noqa: F401
+
 
 def _i32(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a, np.uint32).view(

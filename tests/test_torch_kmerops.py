@@ -12,6 +12,8 @@ import torch
 from megahit_tpu.core import kmerops as jk
 from megahit_tpu_torch.core import kmerops as tk
 
+import torch_test_env  # noqa: F401
+
 KS = [15, 22, 31, 42, 56]
 
 

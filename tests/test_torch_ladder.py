@@ -35,6 +35,8 @@ from megahit_tpu_torch.localasm import mapper as tmap
 from megahit_tpu_torch.localasm import mini_asm as tmini
 from megahit_tpu_torch.pipeline.options import Options as TOptions
 
+import torch_test_env  # noqa: F401
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 

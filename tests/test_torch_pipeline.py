@@ -30,6 +30,8 @@ from megahit_tpu_torch.io import lib as tlib
 from megahit_tpu_torch.pipeline.driver import Pipeline
 from megahit_tpu_torch.pipeline.options import Options
 
+import torch_test_env  # noqa: F401
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "megahit_tpu_torch"
 

@@ -15,6 +15,8 @@ import jax.numpy as jnp
 from megahit_tpu.core import sortnet as jsort
 from megahit_tpu_torch.core import sortnet as tsort
 
+import torch_test_env  # noqa: F401
+
 
 def mk(rng, n, dup=False):
     """tests/test_sortnet.py::mk: real keys keep the low 4 bits of lo
