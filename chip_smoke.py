@@ -89,6 +89,25 @@ Phases, each printing its own lines:
    (--k-list 21,29 --no-local) on cuda with MEGAHIT_TPU_TORCH_DEBUG=1:
    the invariant and finiteness checks run, and final.contigs.fa is
    byte-identical to the run without. Each step's seconds are printed.
+13. the device mesh (megahit_tpu_torch/parallel/): the isolate's count
+   (k1=22, min_count 2, with rare keys) over Mesh(["cuda:0"] * 8), eight
+   virtual shards of the card, equal to count_canonical_kmers on cuda,
+   with both seconds, each shard's received rows (max, mean) and no
+   retry; 200,000 copies of one 24-bp read, which must take the retry
+   and stay equal; the sample sort of 2^24 uniform two-word rows over
+   the 8 shards, then all-equal rows, then the sorted rows (which must
+   take the retry), each equal to torch.sort of the packed key, with
+   both seconds; [11]'s k=21 graph assembled (careful, prune level 2)
+   with the cleaning engine's state over Mesh(["cuda:0"] * 4), which it
+   must take, equal to the unsharded engine (contigs, finals, addi,
+   bubbles, stats); and the CLI with --mesh --k-list 21,41 --no-local
+   in a child process on NCCL at world size 1 (init_distributed with a
+   localhost coordinator), whose final.contigs.fa must be byte-identical
+   to the same run without --mesh in this process, whose log must show
+   the count over NCCL and the k=41 build on the bucketed route; both
+   walls, idle shares and kernel 1 and 2 launch counts (0 under --mesh:
+   the sharded count is torch ops, as megahit_tpu's mesh count reaches
+   no Pallas kernel; 1 each without).
 9. (printed last) the script's total seconds.
 
 It then prints the card line, one JSON line with every kernel's numbers
@@ -1158,6 +1177,268 @@ def phase_stages(torch, data) -> dict:
     return launches
 
 
+def _timed(torch, fn):
+    """(fn(), host seconds with the card synchronised after)."""
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.monotonic() - t0
+
+
+def _mesh_count(torch, data, msgs) -> None:
+    """[13] 1: the sharded count over 8 virtual shards of the card."""
+    import numpy as np
+
+    from megahit_tpu_torch.graph.counter import count_canonical_kmers
+    from megahit_tpu_torch.io.lib import build_lib
+    from megahit_tpu_torch.parallel.multihost import Mesh
+    from megahit_tpu_torch.parallel.shuffle import sharded_count_kmers
+
+    mesh = Mesh(["cuda:0"] * 8)
+    lib = build_lib([data["r1"]], [data["r2"]], [], [])
+
+    def compare(tag, pool, starts, retry):
+        want, t_one = _timed(torch, lambda: count_canonical_kmers(
+            pool, starts, 22, 2, return_rare=True, device="cuda"))
+        del msgs.messages[:]
+        got, t_mesh = _timed(torch, lambda: sharded_count_kmers(
+            pool, starts, 22, 2, mesh, return_rare=True))
+        said = [m for m in msgs.messages if m.startswith("sharded count")]
+        retried = any("retrying" in m for m in said)
+        if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+            fail(f"[13] {tag}: the sharded count differs from "
+                 "count_canonical_kmers on cuda")
+        if retried != retry:
+            fail(f"[13] {tag}: retry taken {retried}, expected {retry}")
+        rows = re.search(r"received rows max (\d+) mean ([0-9.]+)",
+                         said[-1])
+        log(f"[13] sharded count {tag}, k1=22, min_count 2, 8 shards of "
+            f"cuda:0: keys, counts and rare keys equal to "
+            f"count_canonical_kmers ({len(got[0])} solid, {len(got[2])} "
+            f"rare); {t_mesh:.2f}s sharded vs {t_one:.2f}s single; "
+            f"received rows a shard max {rows.group(1)} mean "
+            f"{rows.group(2)}; retry {'taken' if retried else 'not taken'}")
+
+    compare("isolate", lib.pool, lib.starts, retry=False)
+    # one 24-bp read repeated: 3 distinct 22-mers, so each source shard
+    # sends nearly all its rows to at most 3 owners
+    read = np.random.default_rng(13).integers(0, 4, 24).astype(np.uint8)
+    flat = np.tile(read, 200_000)
+    starts = np.arange(0, len(flat) + 1, 24, dtype=np.int64)
+    compare("repeated read (200,000 x 24 bp)", flat, starts, retry=True)
+
+
+def _mesh_sort(torch, msgs) -> None:
+    """[13] 2: the sample sort of 2^24 two-word rows over 8 virtual
+    shards against torch.sort of the packed key."""
+    import numpy as np
+
+    from megahit_tpu_torch.core import kmerops
+    from megahit_tpu_torch.parallel.multihost import Mesh
+    from megahit_tpu_torch.parallel.shuffle import sharded_sort_kmers
+
+    mesh = Mesh(["cuda:0"] * 8)
+    rng = np.random.default_rng(17)
+    n = 1 << 24
+    uniform = rng.integers(0, 2**32, (n, 2), dtype=np.uint64).astype(
+        np.uint32)
+    equal = np.tile(np.array([[5, 7]], np.uint32), (n, 1))
+
+    def torch_sort(keys):
+        t = kmerops.to_torch(keys, "cuda")
+        (c,) = kmerops.pack_sort_keys([t[:, 0], t[:, 1]])
+        s = torch.sort(c).values
+        return kmerops.to_numpy(torch.stack(
+            kmerops.unpack_sort_keys([s], 2), dim=1))
+
+    cases = [("uniform", uniform, False), ("all equal", equal, False)]
+    for tag, keys, retry in cases:
+        want, t_torch = _timed(torch, lambda: torch_sort(keys))
+        if tag == "uniform":
+            # the same rows sorted: each shard holds one key range and
+            # sends it to one owner, past the 2.5x capacity
+            cases.append(("already sorted", want, True))
+        del msgs.messages[:]
+        got, t_mesh = _timed(torch, lambda: sharded_sort_kmers(keys, mesh))
+        retried = any(m.startswith("sharded sort") and "retrying" in m
+                      for m in msgs.messages)
+        if not np.array_equal(got, want):
+            fail(f"[13] sharded sort {tag} differs from torch.sort")
+        if retried != retry:
+            fail(f"[13] sharded sort {tag}: retry taken {retried}, "
+                 f"expected {retry}")
+        log(f"[13] sharded sort 2^24 x 2 words {tag}, 8 shards of cuda:0: "
+            f"equal to torch.sort of the packed key; {t_mesh:.2f}s vs "
+            f"torch.sort {t_torch:.2f}s (both host arrays in and out); "
+            f"retry {'taken' if retried else 'not taken'}")
+
+
+def _mesh_cleaner(torch) -> None:
+    """[13] 3: the cleaning engine's state over 4 virtual shards."""
+    import numpy as np
+
+    from megahit_tpu_torch.graph import assemble_device
+    from megahit_tpu_torch.graph.sdbg import sdbg_from_edges
+    from megahit_tpu_torch.parallel import multihost
+    from megahit_tpu_torch.pipeline.assemble import (
+        AssembleOptions, assemble,
+    )
+
+    z = np.load(os.path.join(DATA, "isolate_1pass", "tmp", "k21",
+                             "k21.edges.npz"))
+    keys, counts = z["keys"], z["counts"]
+    made = []
+    plain_cleaner = assemble_device.DeviceCleaner
+    plain_mesh = multihost.global_shard_mesh
+
+    class Recorded(plain_cleaner):
+        def __init__(self, g, mesh=None):
+            super().__init__(g, mesh=mesh)
+            made.append(self)
+
+    def run(use_mesh):
+        sdbg = sdbg_from_edges(keys, counts, 22, device="cuda")
+        res, secs = _timed(torch, lambda: assemble(sdbg, AssembleOptions(
+            min_standalone=300, prune_level=2, careful_bubble=True,
+            use_mesh=use_mesh)))
+
+        def fmt(cs):
+            return [(c.codes.tobytes(), c.flag, f"{c.multi:.4f}")
+                    for c in cs]
+
+        return (fmt(res.contigs), fmt(res.final_contigs),
+                fmt(res.addi_contigs), fmt(res.bubbles), res.stats), secs
+
+    assemble_device.DeviceCleaner = Recorded
+    multihost.global_shard_mesh = lambda device: multihost.Mesh(
+        ["cuda:0"] * 4)
+    try:
+        one, t_one = run(False)
+        sharded, t_mesh = run(True)
+    finally:
+        assemble_device.DeviceCleaner = plain_cleaner
+        multihost.global_shard_mesh = plain_mesh
+    if [e.mesh is not None for e in made] != [False, True]:
+        fail("[13] the cleaner did not take the 4-shard mesh")
+    for name, a, b in zip(("contigs", "finals", "addi", "bubbles",
+                           "stats"), sharded, one):
+        if a != b:
+            fail(f"[13] 4-shard cleaner: {name} differ from the unsharded "
+                 "device engine's")
+    log(f"[13] cleaner state over 4 shards of cuda:0 on [11]'s k=21 graph "
+        f"(E {made[1].sdbg.size}, Vc {made[1].vc}): {len(one[0])} contigs, "
+        f"{len(one[3])} bubbles and stats equal to the unsharded engine; "
+        f"assemble {t_mesh:.2f}s sharded vs {t_one:.2f}s")
+
+
+MESH_CHILD = r"""
+import json, os, sys, time
+import torch
+sys.path.insert(0, sys.argv[1])
+from megahit_tpu_torch.parallel.multihost import init_distributed
+init_distributed(coordinator=f"localhost:{sys.argv[2]}", num_processes=1,
+                 process_id=0, device="cuda")
+from torch.profiler import ProfilerActivity, profile
+from megahit_tpu_torch.__main__ import main
+from megahit_tpu_torch.core import kernels
+kernels.canonical_all_kmers.launches = 0
+kernels.count_sorted_runs.launches = 0
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    t0 = time.monotonic()
+    rc = main(sys.argv[3:])
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+busy = sum(e.self_device_time_total for e in prof.key_averages()
+           if e.self_device_time_total > 0) / 1e6
+print(json.dumps({"rc": rc, "wall": wall, "busy": busy,
+                  "backend": str(torch.distributed.get_backend()),
+                  "world": torch.distributed.get_world_size(),
+                  "launches": {
+                      "canonical_all_kmers": kernels.canonical_all_kmers.launches,
+                      "count_sorted_runs": kernels.count_sorted_runs.launches}}))
+torch.distributed.destroy_process_group()
+"""
+
+
+def _mesh_cli(torch, data) -> None:
+    """[13] 4: the CLI with --mesh in a child process on NCCL at world
+    size 1, against the same run without --mesh in this process."""
+    import socket
+
+    from megahit_tpu_torch.core import kernels
+
+    from torch.profiler import ProfilerActivity, profile
+
+    root = os.path.join(DATA, "mesh_cli")
+    argv = ["-1", data["r1"], "-2", data["r2"], "--k-list", "21,41",
+            "--no-local", "--device", "cuda", "-f"]
+    kernels.canonical_all_kmers.launches = 0
+    kernels.count_sorted_runs.launches = 0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        _run_cli(argv + ["-o", os.path.join(root, "plain")])
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.self_device_time_total > 0) / 1e6
+    launches = {"canonical_all_kmers": kernels.canonical_all_kmers.launches,
+                "count_sorted_runs": kernels.count_sorted_runs.launches}
+    torch.cuda.empty_cache()
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    res = subprocess.run(
+        [sys.executable, "-c", MESH_CHILD, HERE, str(port)] + argv
+        + ["--mesh", "-o", os.path.join(root, "mesh")],
+        capture_output=True, text=True, timeout=400, cwd=HERE)
+    if res.returncode != 0:
+        fail(f"[13] the --mesh child failed:\n{res.stderr[-3000:]}")
+    child = json.loads(res.stdout.strip().splitlines()[-1])
+    with open(os.path.join(root, "mesh", "log")) as fh:
+        text = fh.read()
+    outs = []
+    for name in ("plain", "mesh"):
+        with open(os.path.join(root, name, "final.contigs.fa"), "rb") as f:
+            outs.append(f.read())
+    if outs[0] != outs[1] or not outs[0]:
+        fail("[13] --mesh final.contigs.fa differs from the run without")
+    if child["backend"] != "nccl" or child["world"] != 1 \
+            or "mesh counting over 1 devices (nccl)" not in text:
+        fail(f"[13] the --mesh run did not count over NCCL: {child}")
+    if not re.search(r"k=41: ~\d+ multiset rows > budget \d+; bucketed",
+                     text):
+        fail("[13] the --mesh k=41 build did not take the bucketed route")
+    log(f"[13] CLI --mesh --k-list 21,41 --no-local, NCCL at world size 1 "
+        f"(child process): final.contigs.fa byte-identical to the run "
+        f"without --mesh ({outs[0].count(b'>')} contigs); walls "
+        f"{child['wall']:.1f}s --mesh vs {wall:.1f}s; idle share "
+        f"{1 - child['busy'] / child['wall']:.1%} vs {1 - busy / wall:.1%}; "
+        f"kernel 1, 2 launches {child['launches']} under --mesh (the "
+        f"sharded count uses torch ops, as megahit_tpu's mesh count "
+        f"reaches no Pallas kernel) vs {launches}")
+    _log_stages("[13] --mesh", os.path.join(root, "mesh"))
+
+
+def phase_mesh(torch, data) -> None:
+    """[13] the mesh on the card: sharded count and sort over 8 virtual
+    shards, the cleaner's state over 4, and the CLI's --mesh on NCCL."""
+    from megahit_tpu_torch.utils.log import get_logger, setup_logging
+
+    t0 = time.monotonic()
+    setup_logging()  # console only
+    msgs = _Messages()
+    get_logger().addHandler(msgs)
+    try:
+        _mesh_count(torch, data, msgs)
+        _mesh_sort(torch, msgs)
+    finally:
+        get_logger().removeHandler(msgs)
+    _mesh_cleaner(torch)
+    _mesh_cli(torch, data)
+    log(f"[13] mesh phase {time.monotonic() - t0:.1f}s")
+
+
 def main() -> int:
     try:
         import torch
@@ -1187,6 +1468,7 @@ def main() -> int:
     phase_out_of_core(data)
     phase_engines(torch)
     stages = phase_stages(torch, data)
+    phase_mesh(torch, data)
     for kd in kern:
         kd["launches"] = launches[kd["name"]]
         kd["ladder_launches"] = ladder[kd["name"]]

@@ -6,7 +6,11 @@ Usage mirrors the reference driver (src/megahit:38-104):
   python -m megahit_tpu_torch --test --device cpu
 
 Runs on the GPU (``--device cuda``, the default) unless ``--device cpu``
-is given; without a GPU it stops with an error. Counterpart of
+is given; without a GPU it stops with an error. ``--mesh`` shards the
+count, the graph builds' sorts and the cleaning state over every visible
+card of this process, or, under torchrun (WORLD_SIZE > 1) or after
+``parallel.multihost.init_distributed``, over one card (or CPU) a rank;
+each rank then needs its own ``-o``. Counterpart of
 megahit_tpu/__main__.py.
 """
 
@@ -60,6 +64,11 @@ def make_parser() -> argparse.ArgumentParser:
                    "(default cuda; there is no silent CPU fallback)")
     h.add_argument("--no-hw-accel", action="store_true",
                    help="reference parity alias for --device cpu")
+    h.add_argument("--mesh", dest="use_mesh", action="store_true",
+                   help="shard k-mer counting, graph-build sorts and the "
+                   "cleaning state over the device mesh (every visible "
+                   "card, or one a rank under torch.distributed: NCCL on "
+                   "cuda, gloo on cpu)")
 
     a = p.add_argument_group("assembly options")
     a.add_argument("--presets", choices=["meta-sensitive", "meta-large"])
@@ -212,6 +221,12 @@ def main(argv=None) -> int:
     # fail before touching the output directory when the device is
     # missing (never carry on on the CPU instead)
     resolve_device(args.device)
+    if args.use_mesh:
+        from megahit_tpu_torch.parallel.multihost import init_distributed
+
+        # torchrun's environment starts the process group (NCCL on a
+        # card, or an error); a single process is a no-op
+        init_distributed(device=args.device)
 
     if (os.path.isdir(args.out_dir)
             and os.listdir(args.out_dir)
@@ -250,7 +265,7 @@ def main(argv=None) -> int:
         verbose=args.verbose,
         k_min=args.k_min, k_max=args.k_max, k_step=args.k_step,
         memory=args.memory, num_cpu_threads=args.num_cpu_threads,
-        device=args.device,
+        device=args.device, use_mesh=args.use_mesh,
     )
     if args.k_list:
         opt.k_list = [int(x) for x in args.k_list.split(",")]

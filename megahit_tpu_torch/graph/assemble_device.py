@@ -35,12 +35,26 @@ are exact below 2^31. pipeline.assemble checks the sound sufficient
 condition (total valid multiplicity < 2^31) and falls back to the host
 engine otherwise.
 
-Counterpart of megahit_tpu/graph/assemble_device.py (without its
-mesh-sharded path).
+Mesh sharding (``DeviceCleaner(g, mesh=)``, parallel/multihost.py):
+when the mesh is taken (more than one shard, and the shard count
+divides both the edge capacity E and the vertex capacity Vc), every
+E-sized and Vc-sized tensor of DevStatic and DevState is held at rest as
+row blocks, block i on shard i's device; under torch.distributed a rank
+holds only its own block. Each pass gathers the blocks into full tensors
+(a ``torch.cat`` in one process, ``all_gather_into_tensor`` across
+ranks), runs the same pass function and keeps each shard's block of the
+result. Every rank computes the whole pass, so its results are
+byte-identical to the unsharded engine's. This shards the state at
+rest, not the compute: a pass holds the full tensors, so there is no
+peak-memory win during a pass. megahit_tpu lets XLA's partitioner split
+each pass by owner rows; doing so here is later work.
+
+Counterpart of megahit_tpu/graph/assemble_device.py.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from dataclasses import dataclass
@@ -161,6 +175,32 @@ def _upload_state(g: UnitigGraph, vc: int) -> DevState:
         alive=vpad(g.alive, False, torch.bool),
         changed=vpad(g.changed, False, torch.bool),
     )
+
+
+def _shard_blocks(x, mesh):
+    """A state dataclass with each tensor field split into the mesh's
+    row blocks: per field, this process's blocks, each a copy on its
+    shard's device."""
+    out = {}
+    for f in dataclasses.fields(x):
+        t = getattr(x, f.name)
+        if isinstance(t, torch.Tensor):
+            blocks = t.chunk(mesh.size)
+            t = [blocks[i].to(mesh.devices[i], copy=True)
+                 for i in mesh.local]
+        out[f.name] = t
+    return type(x)(**out)
+
+
+def _gather_blocks(x, mesh, device):
+    """Inverse of _shard_blocks: full tensors on `device`."""
+    out = {}
+    for f in dataclasses.fields(x):
+        t = getattr(x, f.name)
+        if isinstance(t, list):
+            t = mesh.all_gather(t, device)
+        out[f.name] = t
+    return type(x)(**out)
 
 
 # ---------------------------------------------------------------------------
@@ -524,14 +564,46 @@ class DeviceCleaner:
     every pass runs on the graph's device.
     """
 
-    def __init__(self, g: UnitigGraph):
+    def __init__(self, g: UnitigGraph, mesh=None):
         self.sdbg = g.sdbg
         self.dev = g.sdbg.device
         self.k = g.k  # megahit-k + 1 (edge length)
         self.vc = max(16, 1 << int(np.ceil(np.log2(max(g.size, 2)))))
+        # megahit_tpu's rule: shard only when the mesh splits both
+        # capacities evenly (else the engine runs unsharded)
+        self.mesh = None
+        if mesh is not None:
+            nd = mesh.size
+            if (nd > 1 and self.sdbg.size % nd == 0
+                    and self.vc % nd == 0 and self.sdbg.size >= nd):
+                self.mesh = mesh
         self.static = _upload_static(g.sdbg)
         self.state = _upload_state(g, self.vc)
         self._host_graph_template = g
+
+    # -- state at rest: whole, or the mesh's row blocks ---------------
+
+    @property
+    def static(self) -> DevStatic:
+        if self.mesh is None:
+            return self._static
+        return _gather_blocks(self._static, self.mesh, self.dev)
+
+    @static.setter
+    def static(self, st: DevStatic) -> None:
+        self._static = st if self.mesh is None \
+            else _shard_blocks(st, self.mesh)
+
+    @property
+    def state(self) -> DevState:
+        if self.mesh is None:
+            return self._state
+        return _gather_blocks(self._state, self.mesh, self.dev)
+
+    @state.setter
+    def state(self, s: DevState) -> None:
+        self._state = s if self.mesh is None \
+            else _shard_blocks(s, self.mesh)
 
     # -- helpers ----------------------------------------------------
 
@@ -541,15 +613,16 @@ class DeviceCleaner:
     def _i32(self, x) -> torch.Tensor:
         return torch.tensor(x, dtype=I32, device=self.dev)
 
-    def _ends(self):
+    @staticmethod
+    def _ends(st: DevStatic, s: DevState):
         """(end0, end1): the last edge of each vertex's forward chain
         and of its rc chain (rc_end = rc[start])."""
-        s = self.state
-        return s.end, self.static.rc[s.start.clamp(min=0)]
+        return s.end, st.rc[s.start.clamp(min=0)]
 
-    def _refresh(self, to_delete, to_dfwd, to_drc, set_changed: bool):
-        self.state = _refresh(self.static, self.state, to_delete, to_dfwd,
-                              to_drc, self.vc, set_changed)
+    def _refresh(self, st, s, to_delete, to_dfwd, to_drc,
+                 set_changed: bool):
+        self.state = _refresh(st, s, to_delete, to_dfwd, to_drc, self.vc,
+                              set_changed)
 
     def _zeros_v(self):
         return torch.zeros(self.vc, dtype=torch.bool, device=self.dev)
@@ -560,39 +633,42 @@ class DeviceCleaner:
         num = 0
         thre = 2
         while thre < max_tip_len:
-            end0, end1 = self._ends()
-            delete, n = _tips_marks(self.static, self.state, end0, end1,
-                                    self._i32(thre))
+            st, s = self.static, self.state
+            end0, end1 = self._ends(st, s)
+            delete, n = _tips_marks(st, s, end0, end1, self._i32(thre))
             n = int(n)
             num += n
             if n:
-                self._refresh(delete, self._zeros_v(), self._zeros_v(),
-                              set_changed=False)
+                self._refresh(st, s, delete, self._zeros_v(),
+                              self._zeros_v(), set_changed=False)
             thre = min(thre * 2, max_tip_len)
             if thre >= max_tip_len:
                 break
         return num
 
     def disconnect_weak_links(self, local_ratio: float = 0.1) -> int:
-        end0, end1 = self._ends()
-        dfwd, drc, n = _weak_marks(self.static, self.state, end0, end1,
+        st, s = self.static, self.state
+        end0, end1 = self._ends(st, s)
+        dfwd, drc, n = _weak_marks(st, s, end0, end1,
                                    self._f32(local_ratio), self.vc)
         n = int(n)
         if n:
-            self._refresh(self._zeros_v(), dfwd, drc, set_changed=False)
+            self._refresh(st, s, self._zeros_v(), dfwd, drc,
+                          set_changed=False)
         return n
 
     def remove_local_low_depth(self, min_depth: float, max_len: int,
                                local_width: int, local_ratio: float,
                                permanent: bool) -> tuple[int, bool]:
-        end0, end1 = self._ends()
+        st, s = self.static, self.state
+        end0, end1 = self._ends(st, s)
         remove, n, is_changed = _lld_marks(
-            self.static, self.state, end0, end1, self._f32(min_depth),
+            st, s, end0, end1, self._f32(min_depth),
             self._i32(max_len), self._i32(local_width),
             self._f32(local_ratio))
         n, is_changed = torch.stack([n, is_changed.to(n.dtype)]).tolist()
         if n:
-            self._refresh(remove, self._zeros_v(), self._zeros_v(),
+            self._refresh(st, s, remove, self._zeros_v(), self._zeros_v(),
                           set_changed=not permanent)
         return n, bool(is_changed)
 
@@ -617,18 +693,19 @@ class DeviceCleaner:
         return total
 
     def remove_low_depth(self, min_depth: float) -> int:
-        remove, n = _low_depth_marks(self.state, self._f32(min_depth))
+        st, s = self.static, self.state
+        remove, n = _low_depth_marks(s, self._f32(min_depth))
         n = int(n)
         # the host path always refreshes here (set_changed=False), but
         # a refresh with no marks is the identity
         if n:
-            self._refresh(remove, self._zeros_v(), self._zeros_v(),
+            self._refresh(st, s, remove, self._zeros_v(), self._zeros_v(),
                           set_changed=False)
         return n
 
     # -- bubbles ----------------------------------------------------
 
-    def _vertex_codes(self, vs: np.ndarray, nxt: np.ndarray
+    def _vertex_codes(self, s: DevState, vs: np.ndarray, nxt: np.ndarray
                       ) -> dict[int, np.ndarray]:
         """Host base codes of the given vertex slots (forward chain
         orientation; loops walk their intact nxt cycle from the anchor),
@@ -637,7 +714,6 @@ class DeviceCleaner:
 
         if len(vs) == 0:
             return {}
-        s = self.state
         vt = torch.from_numpy(vs).to(self.dev)
         se = torch.stack([s.start[vt], s.length[vt].to(I64)]).cpu().numpy()
         start, lens = se[0], se[1]
@@ -661,7 +737,7 @@ class DeviceCleaner:
                     careful_threshold: float | None = None,
                     bubble_records: list | None = None) -> int:
         st, s = self.static, self.state
-        end0, end1 = self._ends()
+        end0, end1 = self._ends(st, s)
         shape, avg_d, cid_d = _bubble_shape(st, s, end0, end1,
                                             self._i32(max_len))
         ok2_np = shape["ok"].cpu().numpy()  # (Vc, 2) bool download
@@ -676,8 +752,8 @@ class DeviceCleaner:
                                          shape["pres"], self.vc)
             n = int(delete.sum())
             if n:
-                self._refresh(delete, self._zeros_v(), self._zeros_v(),
-                              set_changed=not permanent)
+                self._refresh(st, s, delete, self._zeros_v(),
+                              self._zeros_v(), set_changed=not permanent)
             return n
 
         # host sequential part over the (small) instance list, in the
@@ -710,7 +786,7 @@ class DeviceCleaner:
                 return
             if nxt is None:
                 nxt = s.nxt.to(I32).cpu().numpy()
-            codes_of.update(self._vertex_codes(need, nxt))
+            codes_of.update(self._vertex_codes(s, need, nxt))
 
         def vstring(v, strand):
             c = codes_of[int(v)]
@@ -772,7 +848,7 @@ class DeviceCleaner:
                     bubble_records.append((packing.decode(c),
                                            float(avg[v])))
         if num_removed:
-            self._refresh(torch.from_numpy(marked).to(self.dev),
+            self._refresh(st, s, torch.from_numpy(marked).to(self.dev),
                           self._zeros_v(), self._zeros_v(),
                           set_changed=not permanent)
         return num_removed

@@ -25,9 +25,10 @@ multiset only ever exists on disk. The spill pass is double-buffered
 reads prefetch under the sorts.
 
 With shard_dir, each round's edges also stream to the sharded graph
-files (graph/sdbg.py ShardedSdbgWriter).
+files (graph/sdbg.py ShardedSdbgWriter). With a mesh, each round is one
+sample sort over the mesh's shards (parallel/shuffle.py).
 
-Counterpart of megahit_tpu/graph/bucketed.py (without its mesh sorts).
+Counterpart of megahit_tpu/graph/bucketed.py.
 """
 
 from __future__ import annotations
@@ -258,13 +259,22 @@ def _sort_on_host(device) -> bool:
     return torch.device(device).type == "cpu"
 
 
-def _sort_rows(rows: np.ndarray, device) -> np.ndarray:
+def _sort_rows(rows: np.ndarray, device, mesh=None) -> np.ndarray:
     """Sort (N, C) uint32 rows lexicographically: one sort of the whole
-    round on `device` (on the CPU the host's native row sort). Every
-    column is a key, so the sort's stability does not change the
-    result."""
+    round on `device` (on the CPU the host's native row sort), or with a
+    mesh one sample sort over its shards. Every column is a key, so the
+    sort's stability does not change the result."""
     if len(rows) == 0:
         return rows
+    if mesh is not None:
+        from ..parallel.shuffle import sharded_sort_kmers
+
+        # the sample sort drops all-ones rows as padding; a round's rows
+        # never are (the mult word is bounded, and without one k % 16
+        # leaves zero pad bits)
+        out = sharded_sort_kmers(rows, mesh)
+        assert len(out) == len(rows), (len(out), len(rows))
+        return out
     if _sort_on_host(device):
         return kmerops.sort_keys_with_payload(rows)[0]
     (srows,) = kmerops.sort_keys_with_payload(
@@ -316,6 +326,7 @@ def build_sdbg_bucketed(
     min_count: int = 1,
     device="cuda",
     shard_dir: str | None = None,
+    mesh=None,
 ) -> Sdbg:
     """Build the SdBG from any mix of PoolSource/EdgeSource inputs with
     a bounded in-memory working set (<= ~budget_rows rows per device
@@ -335,6 +346,9 @@ def build_sdbg_bucketed(
     ShardedSdbgWriter there (per-shard files + bucket manifest,
     reference sdbg_writer.h:19-63) - rounds are bucket ranges in
     prefix order, so the shard layout falls straight out of the build.
+
+    mesh: when set (parallel.multihost.Mesh), every round's sort is a
+    sample sort over its shards; extraction stays on `device`.
     """
     device = resolve_device(device)
     log = get_logger()
@@ -400,7 +414,7 @@ def build_sdbg_bucketed(
             if len(rows) == 0:
                 continue
             t_sort = time.monotonic()
-            srows = _sort_rows(rows, device)
+            srows = _sort_rows(rows, device, mesh)
             t_sort = time.monotonic() - t_sort
             del rows
             keys = srows[:, :w]

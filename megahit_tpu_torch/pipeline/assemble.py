@@ -43,6 +43,7 @@ class AssembleOptions:
     cleaning_rounds: int = 5
     output_standalone: bool = False
     careful_bubble: bool = False
+    use_mesh: bool = False  # shard device cleaning state over the mesh
 
 
 @dataclass
@@ -150,8 +151,16 @@ def assemble(sdbg: Sdbg, opt: AssembleOptions) -> AssembleResult:
                 "to keep byte parity", total_mult)
             use_device = False
     if use_device:
-        eng = assemble_device.DeviceCleaner(g)
-        log.info("cleaning on device (%s)", sdbg.device.type)
+        mesh = None
+        if opt.use_mesh:
+            from ..parallel.multihost import global_shard_mesh
+
+            mesh = global_shard_mesh(sdbg.device)
+        eng = assemble_device.DeviceCleaner(g, mesh=mesh)
+        log.info(
+            "cleaning on device (%s%s)", sdbg.device.type,
+            f", {eng.mesh.size}-device mesh" if eng.mesh is not None
+            else "")
     else:
         eng = _HostEngine(g)
 

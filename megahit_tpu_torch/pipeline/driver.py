@@ -175,6 +175,15 @@ class Pipeline:
             self.lib = SequenceLib.load(self.lib_path, mode=mode)
         return self.lib
 
+    def _mesh(self):
+        """The run's shard mesh under --mesh (every rank of a process
+        group, else every visible card), None without it."""
+        if not self.opt.use_mesh:
+            return None
+        from ..parallel.multihost import global_shard_mesh
+
+        return global_shard_mesh(self.device)
+
     def stage_first_graph(self) -> None:
         """count + mercy + graph at k_min (reference build_first_graph,
         src/megahit:789-802): the default 2-pass path counts solid edges
@@ -187,11 +196,21 @@ class Pipeline:
         if o.kmin_1pass:
             return self._first_graph_1pass(lib, k1)
         with self.timer.phase("first_graph.count"):
-            keys, counts, rare = count_canonical_kmers(
-                lib.pool, lib.starts, k1, o.min_count,
-                batch_windows=self._batch_windows(),
-                return_rare=True, device=self.device,
-            )
+            if o.use_mesh:
+                from ..parallel.shuffle import sharded_count_kmers
+
+                mesh = self._mesh()
+                self.log.info("mesh counting over %d devices (%s)",
+                              mesh.size, mesh.transport)
+                keys, counts, rare = sharded_count_kmers(
+                    lib.pool, lib.starts, k1, o.min_count, mesh,
+                    return_rare=True)
+            else:
+                keys, counts, rare = count_canonical_kmers(
+                    lib.pool, lib.starts, k1, o.min_count,
+                    batch_windows=self._batch_windows(),
+                    return_rare=True, device=self.device,
+                )
         self.log.info("k=%d: %d solid edges", o.k_min, len(keys))
         # min_count <= 1: every observed (k+1)-mer is already solid, so
         # the mercy scan provably returns nothing - skip it
@@ -238,7 +257,7 @@ class Pipeline:
                 os.path.join(self.tmp_dir, f"k{o.k_min}", "spill"),
                 batch_windows=self._batch_windows(), stats=stats,
                 mult_mode="count", min_count=o.min_count,
-                device=self.device)
+                device=self.device, mesh=self._mesh())
         self.log.info(
             "k=%d (1-pass): %d edges, %d rounds (max %d rows)",
             o.k_min, int(sdbg.valid.sum()), stats.n_rounds,
@@ -297,6 +316,7 @@ class Pipeline:
             is_final_round=(k == o.k_max),
             careful_bubble=(k < o.k_max),
             output_standalone=o.no_local,
+            use_mesh=o.use_mesh,
         )
         if o.max_tip_len == -1 and k * 3 - 1 > o.min_contig_len * 1.5:
             aopt.max_tip_len = max(1, int(o.min_contig_len * 1.5 + 1 - k))
@@ -369,7 +389,10 @@ class Pipeline:
         if seqs:
             flat, starts = packing.pack_many(seqs)
             seq_mults = np.floor(np.asarray(mults) + 0.5).astype(np.int32)
-        if est_rows > budget_rows:
+        # --mesh: route the build through the bucketed builder even
+        # under budget, so its sorts shard over the mesh (the in-memory
+        # builds are single-device by construction)
+        if est_rows > budget_rows or (self.opt.use_mesh and est_rows):
             sources = []
             if seqs:
                 sources.append(PoolSource(flat, starts, seq_mults))
@@ -381,7 +404,8 @@ class Pipeline:
             return build_sdbg_bucketed(
                 sources, km, budget_rows,
                 os.path.join(self.tmp_dir, f"k{k}", "spill"),
-                batch_windows=self._batch_windows(), device=dev)
+                batch_windows=self._batch_windows(), device=dev,
+                mesh=self._mesh())
 
         if seqs:
             if use_device_build(dev):

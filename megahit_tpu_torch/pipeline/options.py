@@ -52,6 +52,7 @@ class Options:
     mem_flag: int = 1  # SdBG build memory mode (src/megahit:189)
     num_cpu_threads: int = 0  # reference -t; 0 = all logical CPUs
     device: str = "cuda"  # torch device of the count and graph passes
+    use_mesh: bool = False  # shard counting, build sorts and cleaning
     # misc
     temp_dir: str = ""  # reference --tmp-dir (src/megahit:458-461)
     keep_tmp_files: bool = False
