@@ -1274,8 +1274,46 @@ def _mesh_sort(torch, msgs) -> None:
             f"retry {'taken' if retried else 'not taken'}")
 
 
+def _audit_cleaner(torch, keys, counts, mesh) -> dict:
+    """[13] 3's size audit: the largest tensor any op creates in one
+    remove_tips pass (and its refresh) and one iterate_local_low_depth
+    call, on a fresh engine (mesh or not) from the k=21 graph; a weak
+    link pass is audited too when the tip pass removes nothing."""
+    from megahit_tpu_torch.graph.assemble_device import DeviceCleaner
+    from megahit_tpu_torch.graph.cleaning import infer_min_depth
+    from megahit_tpu_torch.graph.sdbg import remove_tips_sdbg, sdbg_from_edges
+    from megahit_tpu_torch.graph.unitig import build_unitig_graph
+    from megahit_tpu_torch.utils.audit import SizeAudit
+
+    sdbg = sdbg_from_edges(keys, counts, 22, device="cuda")
+    k = sdbg.k - 1
+    remove_tips_sdbg(sdbg, 2 * k)
+    min_depth = infer_min_depth(sdbg)
+    eng = DeviceCleaner(build_unitig_graph(sdbg), mesh=mesh)
+    if (eng.mesh is None) != (mesh is None):
+        fail("[13] the audited cleaner did not take the 4-shard mesh")
+    out = {"largest": 0, "passes": {}}
+    steps = [("remove_tips", lambda: eng.remove_tips(2 * k))]
+    for name, call in steps:
+        with SizeAudit() as a:
+            n = call()
+        out["passes"][name] = (n, a.largest, a.op)
+        out["largest"] = max(out["largest"], a.largest)
+        if name == "remove_tips" and n == 0:
+            steps.append(("disconnect_weak_links",
+                          lambda: eng.disconnect_weak_links(0.1)))
+    with SizeAudit() as a:
+        n = eng.iterate_local_low_depth(min_depth, 2 * k, 1000, 0.1, True)
+    out["passes"]["iterate_local_low_depth"] = (n, a.largest, a.op)
+    out["largest"] = max(out["largest"], a.largest)
+    out["e"], out["vc"] = eng.sdbg.size, eng.vc
+    return out
+
+
 def _mesh_cleaner(torch) -> None:
-    """[13] 3: the cleaning engine's state over 4 virtual shards."""
+    """[13] 3: the cleaning engine split by owner rows over 4 virtual
+    shards: assemble() equal to the unsharded engine's, the size audit,
+    peak device memory, exchanges and seconds of both."""
     import numpy as np
 
     from megahit_tpu_torch.graph import assemble_device
@@ -1299,23 +1337,28 @@ def _mesh_cleaner(torch) -> None:
 
     def run(use_mesh):
         sdbg = sdbg_from_edges(keys, counts, 22, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         res, secs = _timed(torch, lambda: assemble(sdbg, AssembleOptions(
             min_standalone=300, prune_level=2, careful_bubble=True,
             use_mesh=use_mesh)))
+        peak = torch.cuda.max_memory_allocated()
 
         def fmt(cs):
             return [(c.codes.tobytes(), c.flag, f"{c.multi:.4f}")
                     for c in cs]
 
         return (fmt(res.contigs), fmt(res.final_contigs),
-                fmt(res.addi_contigs), fmt(res.bubbles), res.stats), secs
+                fmt(res.addi_contigs), fmt(res.bubbles), res.stats), secs, \
+            peak
 
     assemble_device.DeviceCleaner = Recorded
     multihost.global_shard_mesh = lambda device: multihost.Mesh(
         ["cuda:0"] * 4)
     try:
-        one, t_one = run(False)
-        sharded, t_mesh = run(True)
+        one, t_one, peak_one = run(False)
+        torch.cuda.empty_cache()
+        sharded, t_mesh, peak_mesh = run(True)
     finally:
         assemble_device.DeviceCleaner = plain_cleaner
         multihost.global_shard_mesh = plain_mesh
@@ -1326,10 +1369,29 @@ def _mesh_cleaner(torch) -> None:
         if a != b:
             fail(f"[13] 4-shard cleaner: {name} differ from the unsharded "
                  "device engine's")
-    log(f"[13] cleaner state over 4 shards of cuda:0 on [11]'s k=21 graph "
-        f"(E {made[1].sdbg.size}, Vc {made[1].vc}): {len(one[0])} contigs, "
-        f"{len(one[3])} bubbles and stats equal to the unsharded engine; "
-        f"assemble {t_mesh:.2f}s sharded vs {t_one:.2f}s")
+    rows = made[1].rows
+    gib = 1 << 30
+    log(f"[13] cleaner split by owner rows over 4 shards of cuda:0 on "
+        f"[11]'s k=21 graph (E {made[1].sdbg.size}, Vc {made[1].vc}): "
+        f"{len(one[0])} contigs, {len(one[3])} bubbles and stats equal to "
+        f"the unsharded engine; assemble {t_mesh:.2f}s sharded vs "
+        f"{t_one:.2f}s; peak device memory {peak_mesh / gib:.3f} GiB vs "
+        f"{peak_one / gib:.3f} GiB; {rows.exchanges} exchanges moving "
+        f"{rows.bytes} bytes between shards")
+    torch.cuda.empty_cache()
+    mesh = multihost.Mesh(["cuda:0"] * 4)
+    (audit, t_audit), (whole, t_whole) = (
+        _timed(torch, lambda: _audit_cleaner(torch, keys, counts, m))
+        for m in (mesh, None))
+    ratio = audit["largest"] / whole["largest"]
+    if ratio > 0.5:
+        fail(f"[13] size audit: a shard's largest tensor is {ratio:.3f} of "
+             "the unsharded engine's (limit 0.5)")
+    log(f"[13] size audit, 4 shards of cuda:0, k=21 graph (E {audit['e']}"
+        f"): largest tensor {audit['largest']} elements vs "
+        f"{whole['largest']} unsharded, ratio {ratio:.3f} (limit 0.5); "
+        f"passes (removed, largest, op) {audit['passes']} vs "
+        f"{whole['passes']}; {t_audit:.1f}s and {t_whole:.1f}s audited")
 
 
 MESH_CHILD = r"""
@@ -1422,7 +1484,8 @@ def _mesh_cli(torch, data) -> None:
 
 def phase_mesh(torch, data) -> None:
     """[13] the mesh on the card: sharded count and sort over 8 virtual
-    shards, the cleaner's state over 4, and the CLI's --mesh on NCCL."""
+    shards, the cleaner split by owner rows over 4, and the CLI's --mesh
+    on NCCL."""
     from megahit_tpu_torch.utils.log import get_logger, setup_logging
 
     t0 = time.monotonic()

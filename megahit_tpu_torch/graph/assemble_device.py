@@ -4,11 +4,11 @@ The host cleaning passes (graph/cleaning.py) are numpy frontier sweeps
 with a host refresh between passes. This engine keeps the whole
 cleaning loop on the device instead: the SdBG navigation core
 (run_start / nxt_link / rc / ref_rank / mult) uploads once, and every
-mark pass and every refresh is a whole-graph torch pass over device
-tensors. Per-pass host traffic is one scalar sync (the mark count) plus,
-in the careful/similarity bubble passes, the small per-instance payloads
-and the strings of the vertices those passes read. One download at
-output time materializes the host UnitigGraph.
+mark pass and every refresh is a torch pass over device tensors.
+Per-pass host traffic is one scalar sync (the mark count) plus, in the
+careful/similarity bubble passes, the small per-instance payloads and
+the strings of the vertices those passes read. One download at output
+time materializes the host UnitigGraph.
 
 Semantics are the host engine's, bit for bit (held by
 tests/test_torch_cleaning.py against megahit_tpu's device engine, pass
@@ -24,11 +24,14 @@ by pass, and against both packages' assemble()):
   (min(ref_rank[start], ref_rank[rc_start])) as the host passes.
 - depths are compared in float32, as megahit_tpu's device engine does:
   the scalars arrive as 0-d float32/int32 tensors and the 4-candidate
-  sums are explicit left-to-right adds.
+  sums are explicit left-to-right adds, on the row's owner.
 
-Masked rows of every scatter write to one pad row (index vc or e), all
-with the same value, so duplicate indices in ``index_put_`` stay
-deterministic on CUDA.
+Every pass is written over row blocks (parallel/rows.py): each E-sized
+and Vc-sized tensor is a ``Blocks``, a read of another row is a
+``rows.take`` and a write to another row a ``rows.scatter``. Masked
+writes go nowhere (a whole-tensor pass sends them to a pad row), and
+every scatter is order-free or writes one value per row, so results
+stay deterministic on CUDA.
 
 Precision: per-chain depth accumulates in int32 (``index_add_``); sums
 are exact below 2^31. pipeline.assemble checks the sound sufficient
@@ -37,17 +40,22 @@ engine otherwise.
 
 Mesh sharding (``DeviceCleaner(g, mesh=)``, parallel/multihost.py):
 when the mesh is taken (more than one shard, and the shard count
-divides both the edge capacity E and the vertex capacity Vc), every
-E-sized and Vc-sized tensor of DevStatic and DevState is held at rest as
-row blocks, block i on shard i's device; under torch.distributed a rank
-holds only its own block. Each pass gathers the blocks into full tensors
-(a ``torch.cat`` in one process, ``all_gather_into_tensor`` across
-ranks), runs the same pass function and keeps each shard's block of the
-result. Every rank computes the whole pass, so its results are
-byte-identical to the unsharded engine's. This shards the state at
-rest, not the compute: a pass holds the full tensors, so there is no
-peak-memory win during a pass. megahit_tpu lets XLA's partitioner split
-each pass by owner rows; doing so here is later work.
+divides both the edge capacity E and the vertex capacity Vc), shard i
+owns rows [i*E/n, (i+1)*E/n) of every E-sized tensor and [i*Vc/n,
+(i+1)*Vc/n) of every Vc-sized one, and computes every pass on those
+rows only; under torch.distributed a rank holds and computes only its
+own block. The blocks are uploaded from host slices of the graph, so
+no shard ever holds a tensor of the whole graph's rows; megahit_tpu
+gets the same split from XLA's partitioner. The exchanges: a take is a
+request and a reply (``Mesh.all_to_all_v``, after an exchange of the
+split sizes), a scatter one send. A refresh runs about 2*ceil(log2 E)
+takes in its list ranking plus some 20 more, a mark pass 5 to 20; the
+engine's ``rows.exchanges`` and ``rows.bytes`` count them. What still
+crosses to the host, as in megahit_tpu: the mark counts (global sums,
+taken before any shard branches), the careful/similarity bubble
+payloads and, for their strings, one download of ``nxt``, and
+to_host(). With no mesh the same passes run on one block, where every
+take is plain indexing and no exchange runs.
 
 Counterpart of megahit_tpu/graph/assemble_device.py.
 """
@@ -63,12 +71,14 @@ import numpy as np
 import torch
 
 from ..core import packing
+from ..parallel import rows as R
+from ..parallel.rows import Rows
 from ..utils.debug import check_finite
 from ..utils.devlink import latency_bound_link
 from ..utils.log import get_logger
 from .output import _last_base
-from .sdbg import Sdbg, simple_path_links
-from .unitig import UnitigGraph, _list_rank
+from .sdbg import Sdbg, simple_path_links_rows
+from .unitig import UnitigGraph, _list_rank_rows
 
 I32 = torch.int32
 I64 = torch.int64
@@ -93,7 +103,7 @@ def use_device_cleaning(device) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# state
+# state (every tensor field a parallel.rows.Blocks)
 # ---------------------------------------------------------------------------
 
 
@@ -101,106 +111,92 @@ def use_device_cleaning(device) -> bool:
 class DevStatic:
     """Per-SdBG immutable device tensors (uploaded once)."""
 
-    run_start: torch.Tensor  # (E,) i64
-    nxt_link: torch.Tensor   # (E,) i64
-    rc: torch.Tensor         # (E,) i64
-    ref_rank: torch.Tensor   # (E,) i32
-    mult: torch.Tensor       # (E,) i32
-    e: int                   # edge capacity
-    rounds: int              # pointer-doubling rounds = ceil(log2 E)
-    k: int                   # EDGE length (megahit k + 1)
+    run_start: R.Blocks  # (E,) i64
+    nxt_link: R.Blocks   # (E,) i64
+    rc: R.Blocks         # (E,) i64
+    ref_rank: R.Blocks   # (E,) i32
+    mult: R.Blocks       # (E,) i32
+    e: int               # edge capacity
+    rounds: int          # pointer-doubling rounds = ceil(log2 E)
+    k: int               # EDGE length (megahit k + 1)
 
 
 @dataclass
 class DevState:
     """Mutable graph state, all on the device."""
 
-    valid: torch.Tensor        # (E,) bool
-    vid: torch.Tensor          # (E,) i64 slot of each edge's vertex
-    nxt: torch.Tensor          # (E,) i64 simple-path successor
-    prv: torch.Tensor          # (E,) i64
-    chain_start: torch.Tensor  # (E,) i64
-    edge_pos: torch.Tensor     # (E,) i32
+    valid: R.Blocks        # (E,) bool
+    vid: R.Blocks          # (E,) i64 slot of each edge's vertex
+    nxt: R.Blocks          # (E,) i64 simple-path successor
+    prv: R.Blocks          # (E,) i64
+    chain_start: R.Blocks  # (E,) i64
+    edge_pos: R.Blocks     # (E,) i32
     # vertex tensors, slot-indexed at fixed capacity Vc
-    start: torch.Tensor        # (Vc,) i64
-    end: torch.Tensor          # (Vc,) i64
-    length: torch.Tensor       # (Vc,) i32
-    depth: torch.Tensor        # (Vc,) i32 total depth (exact < 2^31)
-    is_loop: torch.Tensor      # (Vc,) bool
-    is_pal: torch.Tensor       # (Vc,) bool
-    alive: torch.Tensor        # (Vc,) bool
-    changed: torch.Tensor      # (Vc,) bool
+    start: R.Blocks        # (Vc,) i64
+    end: R.Blocks          # (Vc,) i64
+    length: R.Blocks       # (Vc,) i32
+    depth: R.Blocks        # (Vc,) i32 total depth (exact < 2^31)
+    is_loop: R.Blocks      # (Vc,) bool
+    is_pal: R.Blocks       # (Vc,) bool
+    alive: R.Blocks        # (Vc,) bool
+    changed: R.Blocks      # (Vc,) bool
 
 
-def _put(a, dev, dtype) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
-
-
-def _upload_static(sdbg: Sdbg) -> DevStatic:
-    dev = sdbg.device
+def _upload_static(sdbg: Sdbg, rows: Rows) -> DevStatic:
     e = sdbg.size
     return DevStatic(
-        run_start=_put(sdbg.run_start, dev, I64),
-        nxt_link=_put(sdbg.nxt_link, dev, I64),
-        rc=_put(sdbg.rc, dev, I64),
-        ref_rank=_put(sdbg.ref_rank, dev, I32),
-        mult=_put(sdbg.mult, dev, I32),
+        run_start=rows.put(sdbg.run_start, e, I64),
+        nxt_link=rows.put(sdbg.nxt_link, e, I64),
+        rc=rows.put(sdbg.rc, e, I64),
+        ref_rank=rows.put(sdbg.ref_rank, e, I32),
+        mult=rows.put(sdbg.mult, e, I32),
         e=e,
         rounds=max(1, int(np.ceil(np.log2(max(e, 2))))),
         k=sdbg.k,
     )
 
 
-def _upload_state(g: UnitigGraph, vc: int) -> DevState:
-    dev = g.sdbg.device
-
-    def vpad(a, fill, dtype):
-        out = np.full(vc, fill, np.asarray(a).dtype)
-        out[: g.size] = a
-        return _put(out, dev, dtype)
-
+def _upload_state(g: UnitigGraph, vc: int, rows: Rows) -> DevState:
+    e = g.sdbg.size
     return DevState(
-        valid=_put(g.sdbg.valid, dev, torch.bool),
-        vid=_put(g.vid, dev, I64),
-        nxt=_put(g.nxt, dev, I64),
-        prv=_put(g.prv, dev, I64),
-        chain_start=_put(g.chain_start, dev, I64),
-        edge_pos=_put(g.edge_pos, dev, I32),
-        start=vpad(g.start, 0, I64),
-        end=vpad(g.end, 0, I64),
-        length=vpad(g.length, 0, I32),
-        depth=vpad(g.total_depth, 0, I32),
-        is_loop=vpad(g.is_loop, False, torch.bool),
-        is_pal=vpad(g.is_palindrome, False, torch.bool),
-        alive=vpad(g.alive, False, torch.bool),
-        changed=vpad(g.changed, False, torch.bool),
+        valid=rows.put(g.sdbg.valid, e, torch.bool),
+        vid=rows.put(g.vid, e, I64),
+        nxt=rows.put(g.nxt, e, I64),
+        prv=rows.put(g.prv, e, I64),
+        chain_start=rows.put(g.chain_start, e, I64),
+        edge_pos=rows.put(g.edge_pos, e, I32),
+        start=rows.put(g.start, vc, I64),
+        end=rows.put(g.end, vc, I64),
+        length=rows.put(g.length, vc, I32),
+        depth=rows.put(g.total_depth, vc, I32),
+        is_loop=rows.put(g.is_loop, vc, torch.bool, False),
+        is_pal=rows.put(g.is_palindrome, vc, torch.bool, False),
+        alive=rows.put(g.alive, vc, torch.bool, False),
+        changed=rows.put(g.changed, vc, torch.bool, False),
     )
 
 
-def _shard_blocks(x, mesh):
-    """A state dataclass with each tensor field split into the mesh's
-    row blocks: per field, this process's blocks, each a copy on its
-    shard's device."""
+def _gather_blocks(x, rows: Rows, device):
+    """A state dataclass with every Blocks field gathered into one
+    whole tensor on `device` (tests only: no pass calls it)."""
     out = {}
     for f in dataclasses.fields(x):
         t = getattr(x, f.name)
-        if isinstance(t, torch.Tensor):
-            blocks = t.chunk(mesh.size)
-            t = [blocks[i].to(mesh.devices[i], copy=True)
-                 for i in mesh.local]
+        if isinstance(t, R.Blocks):
+            t = t.b[0] if rows.mesh is None else \
+                rows.mesh.all_gather(t.b, device)
         out[f.name] = t
     return type(x)(**out)
 
 
-def _gather_blocks(x, mesh, device):
-    """Inverse of _shard_blocks: full tensors on `device`."""
-    out = {}
-    for f in dataclasses.fields(x):
-        t = getattr(x, f.name)
-        if isinstance(t, list):
-            t = mesh.all_gather(t, device)
-        out[f.name] = t
-    return type(x)(**out)
+def _finite(name: str, x: R.Blocks) -> R.Blocks:
+    for t in x.b:
+        check_finite(name, t)
+    return x
+
+
+def _arange4(t):
+    return t[..., None] + torch.arange(4, device=t.device)
 
 
 # ---------------------------------------------------------------------------
@@ -208,32 +204,33 @@ def _gather_blocks(x, mesh, device):
 # ---------------------------------------------------------------------------
 
 
-def _run4_dev(starts, run_start, valid, e: int):
-    """(N,) run-start rows -> ((N,4) rows, (N,4) present): the <= 4
-    consecutive members of each run that are valid."""
+def _run4(rows, starts, run_valid, e: int):
+    """run-start rows (any shape) -> (rows, present), each of shape
+    starts.shape + (4,): the <= 4 consecutive members of each run that
+    are valid. run_valid is run_start where valid, else -1 (one column
+    to read instead of two: safe >= 0 never equals -1). The members may
+    lie in the next shard's block."""
     safe = starts.clamp(min=0)
-    idx = safe[:, None] + torch.arange(4, device=starts.device)[None, :]
+    idx = R.bmap(_arange4, safe)
     clip = idx.clamp(max=e - 1)
-    ok = (starts >= 0)[:, None] & (idx < e) \
-        & (run_start[clip] == safe[:, None]) & valid[clip]
+    (rs,) = rows.take([run_valid], clip)
+    ok = (starts >= 0)[..., None] & (idx < e) & (rs == safe[..., None])
     return clip, ok
 
 
-def _nbr_tables(st: DevStatic, s: DevState, end0, end1):
+def _nbr_tables(rows, st: DevStatic, s: DevState, end0, end1):
     """Successor tables for both traversal strands: (Vc,2,4) neighbour
     slots / entry strands / presence (unitig.next_vertices)."""
-    nbrs, strands, pres = [], [], []
-    for last in (end0, end1):
-        cand, ok = _run4_dev(st.nxt_link[last.clamp(min=0)],
-                             st.run_start, s.valid, st.e)
-        ok = ok & s.alive[:, None]
-        nbr = torch.where(ok, s.vid[cand], NULL)
-        enter_fwd = cand == s.start[nbr.clamp(min=0)]
-        strands.append(torch.where(enter_fwd, 0, 1).to(torch.int8))
-        nbrs.append(nbr)
-        pres.append(ok)
-    return (torch.stack(nbrs, 1), torch.stack(strands, 1),
-            torch.stack(pres, 1))
+    last = R.stack([end0, end1], 1).clamp(min=0)
+    (link,) = rows.take([st.nxt_link], last)
+    cand, ok = _run4(rows, link, R.where(s.valid, st.run_start, NULL),
+                     st.e)
+    ok = ok & s.alive[:, None, None]
+    (vid,) = rows.take([s.vid], cand)
+    nbr = R.where(ok, vid, NULL)
+    (start,) = rows.take([s.start], nbr.clamp(min=0))
+    strands = R.where(cand == start, 0, 1).to(torch.int8)
+    return nbr, strands, ok
 
 
 def _sum4(x):
@@ -242,21 +239,20 @@ def _sum4(x):
 
 
 # ---------------------------------------------------------------------------
-# refresh (kill edges -> rebuild -> reference slot order), no host sync
+# refresh (kill edges -> rebuild -> reference slot order); on one block
+# no host sync, on a mesh one per exchange (its split sizes)
 # ---------------------------------------------------------------------------
 
 
-def _refresh(st: DevStatic, s: DevState, to_delete, to_dfwd, to_drc,
-             vc: int, set_changed: bool) -> DevState:
+def _refresh(rows: Rows, st: DevStatic, s: DevState, to_delete, to_dfwd,
+             to_drc, vc: int, set_changed: bool) -> DevState:
     """Apply marks, rebuild chains, restore reference slot semantics
     (unitig._refresh_full + _reference_order + _propagate_changed).
 
     Gathers that megahit_tpu leaves to XLA's index clamping are clamped
     here explicitly, so every intermediate equals megahit_tpu's."""
     e = st.e
-    dev = s.valid.device
-    idx = torch.arange(e, device=dev)
-    rc, ref_rank = st.rc, st.ref_rank
+    idx = rows.arange(e)
 
     # ---- classify marks (unitig._classify_marks)
     n_marks = to_dfwd.to(I32) + to_drc.to(I32)
@@ -266,46 +262,53 @@ def _refresh(st: DevStatic, s: DevState, to_delete, to_dfwd, to_drc,
     disc_r = to_drc & ~to_delete & ~kill_whole & s.alive
 
     # ---- kill edges (unitig._kill_edge_indices)
-    kill = torch.zeros(e + 1, dtype=torch.bool, device=dev)
-    kill[torch.where(disc_f, s.start, e)] = True
-    kill[torch.where(disc_r, rc[s.end.clamp(min=0)], e)] = True
-    kill = kill[:e] | ((s.vid >= 0) & delete[s.vid.clamp(min=0)])
-    kill = kill | kill[rc]
-    valid = s.valid & ~kill
+    (rc_end,) = rows.take([st.rc], s.end.clamp(min=0))
+    (kill,) = rows.scatter(
+        [rows.full(e, False, torch.bool)],
+        R.stack([R.where(disc_f, s.start, NULL),
+                 R.where(disc_r, rc_end, NULL)]), [True])
+    (del_vid,) = rows.take([delete], s.vid.clamp(min=0))
+    kill = kill | ((s.vid >= 0) & del_vid)
+    (kill_rc,) = rows.take([kill], st.rc)
+    valid = s.valid & ~(kill | kill_rc)
 
     # ---- rebuild chains
-    nxt, prv = simple_path_links(st.run_start, st.nxt_link, rc, valid)
-    endr, _, startr, pos, mn = _list_rank(nxt, prv, st.rounds)
-    in_cycle = valid & (nxt[endr] >= 0)
-    chain_start = torch.where(in_cycle, mn, startr)
-    chain_end = torch.where(in_cycle, prv[mn], endr)
+    nxt, prv = simple_path_links_rows(rows, st.run_start, st.nxt_link,
+                                      st.rc, valid)
+    endr, _, startr, pos, mn = _list_rank_rows(rows, nxt, prv, st.rounds)
+    (nxt_endr,) = rows.take([nxt], endr)
+    (prv_mn,) = rows.take([prv], mn)
+    in_cycle = valid & (nxt_endr >= 0)
+    chain_start = R.where(in_cycle, mn, startr)
+    chain_end = R.where(in_cycle, prv_mn, endr)
     ce = chain_end.clamp(min=0)
 
-    seg = torch.where(valid, chain_start, e)
-    len_per_start = torch.zeros(e + 1, dtype=I32, device=dev).index_add_(
-        0, seg, torch.ones(e, dtype=I32, device=dev))[:e]
-    dep_per_start = torch.zeros(e + 1, dtype=I32, device=dev).index_add_(
-        0, seg, st.mult)[:e]
+    seg = R.where(valid, chain_start, NULL)
+    len_per_start, dep_per_start = rows.scatter(
+        [rows.full(e, 0, I32), rows.full(e, 0, I32)], seg, [1, st.mult],
+        "add")
 
     # disconnect-adjusted old start per old slot (_reference_order)
-    adj_start = torch.where(disc_f, s.nxt[s.start.clamp(min=0)], s.start)
+    (nxt_start,) = rows.take([s.nxt], s.start.clamp(min=0))
+    adj_start = R.where(disc_f, nxt_start, s.start)
     is_rep = valid & (chain_start == idx)
 
     # per-chain min old slot (for cycles; h/t for chains)
-    vid_seg = torch.where(valid & (s.vid >= 0), s.vid, vc)
-    mslot = torch.full((e + 1,), vc, dtype=I64, device=dev).scatter_reduce_(
-        0, seg, vid_seg, reduce="amin")[:e]
+    vid_seg = R.where(valid & (s.vid >= 0), s.vid, vc)
+    (mslot,) = rows.scatter([rows.full(e, vc, I64)], seg, [vid_seg],
+                            "amin")
 
     h = s.vid                    # old slot of first edge
-    t = s.vid[ce]                # old slot of last edge
-    pair_start = chain_start[rc[ce]]
+    t, ref_ce, rc_ce = rows.take([s.vid, st.ref_rank, st.rc], ce)
+    (pair_start,) = rows.take([chain_start], rc_ce)
+    (ref_rc,) = rows.take([st.ref_rank], st.rc)
 
     # chain orientation winner: min-old-slot head; tie: adjusted start
     # edge; tie: flip of the ref_rank build orientation
-    adj_h = adj_start[h.clamp(min=0)]
+    (adj_h,) = rows.take([adj_start], h.clamp(min=0))
     r2_is_adj = pair_start == adj_h
     self_is_adj = idx == adj_h
-    build_flip = ref_rank[ce] > ref_rank[rc]
+    build_flip = ref_ce > ref_rc
     win_chain = (h < t) | (
         (h == t) & (self_is_adj | (~r2_is_adj & build_flip)))
     # palindrome (pair == self): single rep, wins
@@ -314,52 +317,45 @@ def _refresh(st: DevStatic, s: DevState, to_delete, to_dfwd, to_drc,
 
     # cycle winner: the strand cycle containing the min-slot member's
     # adjusted start edge, anchored there
-    cyc_anchor = adj_start[mslot.clamp(0, vc - 1)]
-    win_cycle = chain_start[cyc_anchor.clamp(min=0)] == idx
+    (cyc_anchor,) = rows.take([adj_start], mslot.clamp(0, vc - 1))
+    cs_anchor, prv_anchor = rows.take([chain_start, prv],
+                                      cyc_anchor.clamp(min=0))
+    win_cycle = cs_anchor == idx
 
-    win = is_rep & torch.where(in_cycle, win_cycle, win_chain)
-    slot = torch.where(in_cycle, mslot, torch.minimum(h, t))
-    new_start = torch.where(in_cycle, cyc_anchor, idx)
-    new_end = torch.where(in_cycle, prv[cyc_anchor.clamp(min=0)],
-                          chain_end)
-
-    # ---- scatter winners into vertex slots (slot-space: dead slots
-    # keep stale values); masked rows write their own pad value to row vc
-    wslot = torch.where(win, slot, vc)
-    alive_new = torch.zeros(vc + 1, dtype=torch.bool, device=dev)
-    alive_new[wslot] = True
-    alive_new = alive_new[:vc]
-
-    def scat2(base, val, fill):
-        padded = torch.cat(
-            [base, torch.full((1,), fill, dtype=base.dtype, device=dev)])
-        padded[wslot] = torch.where(win, val.to(base.dtype), padded[wslot])
-        return padded[:vc]
-
-    start_new = scat2(s.start, new_start, 0)
-    end_new = scat2(s.end, new_end, 0)
-    length_new = scat2(s.length, len_per_start, 0)
-    depth_new = scat2(s.depth, dep_per_start, 0)
-    loop_new = scat2(s.is_loop, in_cycle, False)
-    pal_new = scat2(s.is_pal, is_self_pair, False)
+    win = is_rep & R.where(in_cycle, win_cycle, win_chain)
+    slot = R.where(in_cycle, mslot, R.minimum(h, t))
+    new_start = R.where(in_cycle, cyc_anchor, idx)
+    new_end = R.where(in_cycle, prv_anchor, chain_end)
 
     # ---- changed propagation (_propagate_changed)
-    nfo = s.vid[new_start.clamp(min=0)]
-    nfo_c = nfo.clamp(min=0)
-    same = (nfo >= 0) & (s.length[nfo_c] == len_per_start) \
-        & (s.vid[new_end.clamp(min=0)] == nfo)
-    prev_changed = (nfo >= 0) & s.changed[nfo_c]
+    (vid_ends,) = rows.take([s.vid], R.stack(
+        [new_start.clamp(min=0), new_end.clamp(min=0)], 1))
+    nfo = vid_ends[:, 0]
+    len_nfo, changed_nfo = rows.take([s.length, s.changed],
+                                     nfo.clamp(min=0))
+    same = (nfo >= 0) & (len_nfo == len_per_start) \
+        & (vid_ends[:, 1] == nfo)
+    prev_changed = (nfo >= 0) & changed_nfo
     ch_val = (~same | prev_changed) if set_changed else \
         (same & prev_changed)
-    changed_new = scat2(s.changed, ch_val, False)
+
+    # ---- scatter winners into vertex slots (slot-space: dead slots
+    # keep stale values; each slot gets at most one winner)
+    wslot = R.where(win, slot, NULL)
+    (alive_new, start_new, end_new, length_new, depth_new, loop_new,
+     pal_new, changed_new) = rows.scatter(
+        [rows.full(vc, False, torch.bool), s.start, s.end, s.length,
+         s.depth, s.is_loop, s.is_pal, s.changed], wslot,
+        [True, new_start, new_end, len_per_start, dep_per_start, in_cycle,
+         is_self_pair, ch_val])
 
     # ---- per-edge vid
-    slot_of_start = torch.full((e + 1,), NULL, dtype=I64, device=dev)
-    wval = torch.where(win, slot, NULL)
-    slot_of_start[torch.where(win, idx, e)] = wval
-    slot_of_start[torch.where(win, pair_start, e)] = wval
-    vid_new = torch.where(
-        valid, slot_of_start[chain_start.clamp(max=e - 1)], NULL)
+    (slot_of_start,) = rows.scatter([rows.full(e, NULL, I64)],
+                                    R.where(win, idx, NULL), [wslot])
+    (slot_of_start,) = rows.scatter([slot_of_start],
+                                    R.where(win, pair_start, NULL), [wslot])
+    (sos,) = rows.take([slot_of_start], chain_start.clamp(max=e - 1))
+    vid_new = R.where(valid, sos, NULL)
 
     return DevState(
         valid=valid, vid=vid_new, nxt=nxt, prv=prv,
@@ -372,71 +368,69 @@ def _refresh(st: DevStatic, s: DevState, to_delete, to_dfwd, to_drc,
 
 # ---------------------------------------------------------------------------
 # mark passes (translations of graph/cleaning.py, same tie-breaks; each
-# returns mark masks + a scalar count tensor)
+# returns mark masks + a per-block count)
 # ---------------------------------------------------------------------------
 
 
 def _avg_depth(s: DevState):
-    return check_finite("average depth",
-                        s.depth.to(F32) / s.length.clamp(min=1))
+    return _finite("average depth", s.depth.to(F32) / s.length.clamp(min=1))
 
 
-def _tips_marks(st, s, end0, end1, thre):
+def _tips_marks(rows, st, s, end0, end1, thre):
     """cleaning.remove_tips body for one threshold."""
-    nbr, _, present = _nbr_tables(st, s, end0, end1)
+    nbr, _, present = _nbr_tables(rows, st, s, end0, end1)
     outdeg = present.sum(-1)
     ind, outd = outdeg[:, 1], outdeg[:, 0]
     short = (s.length < thre) & s.alive
     avg = _avg_depth(s)
     delete = short & ~s.is_loop & (ind + outd == 0)
+    sel = R.where(present, nbr, NULL).amax(-1)  # (Vc, 2)
+    (nb_avg,) = rows.take([avg], sel.clamp(min=0))
     for strand in (0, 1):
         one_out = short & ~s.is_loop & (outdeg[:, strand] == 1) & (
             outdeg[:, 1 - strand] == 0)
-        sel = torch.where(present[:, strand], nbr[:, strand], NULL).amax(-1)
-        ok = one_out & (sel >= 0)
-        nb_avg = torch.where(ok, avg[sel.clamp(min=0)], 0.0)
-        delete = delete | (ok & (nb_avg > 8 * avg))
+        ok = one_out & (sel[:, strand] >= 0)
+        nb = R.where(ok, nb_avg[:, strand], 0.0)
+        delete = delete | (ok & (nb > 8 * avg))
     return delete, delete.sum()
 
 
-def _weak_marks(st, s, end0, end1, local_ratio, vc: int):
+def _weak_marks(rows, st, s, end0, end1, local_ratio, vc: int):
     """cleaning.disconnect_weak_links marks. num reproduces the host's
     counting exactly: each (strand, j) batch adds its selected entries
-    minus those whose target was already marked before the batch."""
-    dev = s.valid.device
-    nbr, nstr, present = _nbr_tables(st, s, end0, end1)
+    minus those whose target was already marked before the batch.
+    The marks are one (2*Vc,) row space: row 2*v + strand holds v's
+    forward (0) or rc (1) disconnect mark."""
+    nbr, nstr, present = _nbr_tables(rows, st, s, end0, end1)
     outdeg = present.sum(-1)
     standalone = ~s.is_loop & (outdeg[:, 0] == 0) & (outdeg[:, 1] == 0)
     skip = standalone | s.is_pal | s.is_loop
     avg = _avg_depth(s)
-    dfwd = torch.zeros(vc + 1, dtype=torch.bool, device=dev)
-    drc = torch.zeros(vc + 1, dtype=torch.bool, device=dev)
-    num = torch.zeros((), dtype=I64, device=dev)
+    (nb_avg,) = rows.take([avg], nbr.clamp(min=0))
+    marks = rows.full(2 * vc, False, torch.bool)
+    num = rows.const(0, I64)
     for strand in (0, 1):
         act = ~skip & (outdeg[:, strand] > 1) & s.alive
         pres = present[:, strand] & act[:, None]
-        depths = torch.where(pres, avg[nbr[:, strand].clamp(min=0)], 0.0)
-        total = check_finite("weak-link depth sum", _sum4(depths))
+        depths = R.where(pres, nb_avg[:, strand], 0.0)
+        total = _finite("weak-link depth sum", _sum4(depths))
         weak = pres & (depths <= local_ratio * total[:, None])
         for j in range(4):
             sel = weak[:, j]
-            tgt = nbr[:, strand, j]
-            ts = nstr[:, strand, j]
-            m0 = sel & (ts == 0)
-            m1 = sel & (ts == 1)
-            safe_t = tgt.clamp(min=0)
-            before = (m0 & dfwd[safe_t]).sum() + (m1 & drc[safe_t]).sum()
-            num = num + m0.sum() + m1.sum() - before
-            dfwd[torch.where(m0, tgt, vc)] = True
-            drc[torch.where(m1, tgt, vc)] = True
-    return dfwd[:vc], drc[:vc], num
+            row = 2 * nbr[:, strand, j].clamp(min=0) + nstr[:, strand, j]
+            (before,) = rows.take([marks], row)
+            num = num + sel.sum() - (sel & before).sum()
+            (marks,) = rows.scatter([marks], R.where(sel, row, NULL),
+                                    [True])
+    marks = marks.reshape(-1, 2)
+    return marks[:, 0], marks[:, 1], num
 
 
-def _lld_marks(st, s, end0, end1, min_depth, max_len, local_width,
+def _lld_marks(rows, st, s, end0, end1, min_depth, max_len, local_width,
                local_ratio):
     """cleaning.remove_local_low_depth marks + is_changed."""
     depth = s.depth.to(F32)
-    nbr, _, present = _nbr_tables(st, s, end0, end1)
+    nbr, _, present = _nbr_tables(rows, st, s, end0, end1)
     outdeg = present.sum(-1)
     ind, outd = outdeg[:, 1], outdeg[:, 0]
     standalone = ~s.is_loop & (ind == 0) & (outd == 0)
@@ -445,23 +439,24 @@ def _lld_marks(st, s, end0, end1, min_depth, max_len, local_width,
     cand = cand & (((ind <= 1) & (outd <= 1)) | (ind == 0) | (outd == 0))
     avg = _avg_depth(s)
     # _local_depth
-    total = torch.zeros(depth.shape[0], dtype=F32, device=depth.device)
-    edges = torch.zeros_like(total)
+    total = R.bmap(torch.zeros_like, depth)
+    edges = R.bmap(torch.zeros_like, total)
     for strand in (0, 1):
         pres = present[:, strand]
-        nb = nbr[:, strand].clamp(min=0)
-        ln = torch.where(pres, s.length[nb], 0)
+        ln_nb, dep_nb, avg_nb = rows.take([s.length, depth, avg],
+                                          nbr[:, strand].clamp(min=0))
+        ln = R.where(pres, ln_nb, 0)
         short = ln <= local_width
-        contrib_e = torch.where(short, ln, local_width) * pres
-        contrib_d = torch.where(
-            short, torch.where(pres, depth[nb], 0.0),
-            avg[nb] * local_width * pres)
+        contrib_e = R.where(short, ln, local_width) * pres
+        contrib_d = R.where(
+            short, R.where(pres, dep_nb, 0.0),
+            avg_nb * local_width * pres)
         edges = edges + _sum4(contrib_e)
         total = total + _sum4(contrib_d)
-    mean = check_finite("local depth mean", torch.where(
+    mean = _finite("local depth mean", R.where(
         edges > 0, total / edges.clamp(min=1), 0.0))
-    threshold = check_finite("local depth threshold",
-                             torch.minimum(min_depth, mean * local_ratio))
+    threshold = _finite("local depth threshold",
+                        R.minimum(min_depth, mean * local_ratio))
     remove = cand & (avg < threshold)
     is_changed = (cand & (min_depth < mean * local_ratio)).any() \
         | remove.any()
@@ -473,25 +468,37 @@ def _low_depth_marks(s, min_depth):
     return remove, remove.sum()
 
 
-def _bubble_shape(st, s, end0, end1, max_len):
+def _successor_rows(nbr, nstr, outdeg):
+    """Per (vertex, strand) row 2*v + strand, what a bubble middle
+    entered on that strand contributes: its successors' max slot, the
+    strand of the first successor holding it, its out-degree on that
+    strand and on the other, each (2*Vc,)."""
+    rv = nbr.amax(-1)
+    first_max = R.bmap(
+        lambda n, m: torch.where(n == m[..., None],
+                                 torch.arange(4, device=n.device), 4
+                                 ).amin(-1), nbr, rv)
+    rs = nstr.gather(-1, first_max[..., None])[..., 0]
+    return (rv.reshape(-1), rs.reshape(-1), outdeg.reshape(-1),
+            outdeg.flip(1).reshape(-1))
+
+
+def _bubble_shape(rows, st, s, end0, end1, max_len):
     """cleaning._find_bubble_instances, both strands at once.
 
     Returns per-(vertex, strand): ok, right slot, right strand, and the
     (4,) middle slots / strands / presence SORTED by the reference keep
-    order (avg depth desc, canonical edge id asc); and avg, cid."""
-    nbr, nstr, present = _nbr_tables(st, s, end0, end1)
-    vc = nbr.shape[0]
+    order (avg depth desc, canonical edge id asc); and avg."""
+    nbr, nstr, present = _nbr_tables(rows, st, s, end0, end1)
     outdeg = present.sum(-1)
     standalone = ~s.is_loop & (outdeg[:, 0] == 0) & (outdeg[:, 1] == 0)
     base = (outdeg > 1).any(1) & ~s.is_loop & ~standalone & s.alive
     avg = _avg_depth(s)
-    cid = torch.minimum(st.ref_rank[s.start.clamp(min=0)],
-                        st.ref_rank[st.rc[s.end.clamp(min=0)]])
-    ar4 = torch.arange(4, device=nbr.device)
-    # (Vc*2, .) views: row 2*v + strand
-    nbr_rows = nbr.reshape(vc * 2, 4)
-    nstr_rows = nstr.reshape(vc * 2, 4)
-    outdeg_flat = outdeg.reshape(-1)
+    (rc_end,) = rows.take([st.rc], s.end.clamp(min=0))
+    (rr,) = rows.take([st.ref_rank],
+                      R.stack([s.start.clamp(min=0), rc_end], 1))
+    cid = R.minimum(rr[:, 0], rr[:, 1])
+    succ = _successor_rows(nbr, nstr, outdeg)
 
     out = {name: [] for name in ("ok", "right", "rstr", "mids", "mstr",
                                  "pres")}
@@ -502,52 +509,80 @@ def _bubble_shape(st, s, end0, end1, max_len):
         mstr = nstr[:, strand].to(I64)
         pres = present[:, strand]
         safe = mids.clamp(min=0)
-        ok = active & ~(pres & (s.length[safe] > max_len)).any(1)
-        od_fwd = outdeg_flat[2 * safe + mstr]
-        od_rev = outdeg_flat[2 * safe + 1 - mstr]
+        len_m, avg_m, cid_m = rows.take([s.length, avg, cid], safe)
+        # each middle's successors on its entry strand
+        rv, rs, od_fwd, od_rev = rows.take(succ, 2 * safe + mstr)
+        ok = active & ~(pres & (len_m > max_len)).any(1)
         ok = ok & ~(pres & ((od_fwd != 1) | (od_rev != 1))).any(1)
-
-        # each middle's successors on its entry strand: (Vc, 4, 4)
-        r_nbr = nbr_rows[2 * safe + mstr]
-        r_str = nstr_rows[2 * safe + mstr]
-        rv = r_nbr.amax(-1)
-        first_max = torch.where(r_nbr == rv[..., None], ar4, 4).amin(-1)
-        rs = r_str.gather(-1, first_max[..., None])[..., 0]
-        first_slot = torch.where(pres, ar4, 4).amin(1)
-        first_slot = torch.where(first_slot == 4, 0, first_slot)
+        first_slot = R.bmap(
+            lambda p: torch.where(p, torch.arange(4, device=p.device), 4
+                                  ).amin(1), pres)
+        first_slot = R.where(first_slot == 4, 0, first_slot)
         rv0 = rv.gather(1, first_slot[:, None])[:, 0]
         rs0 = rs.gather(1, first_slot[:, None])[:, 0]
         ok = ok & ~(pres & ((rv != rv0[:, None]) | (rs != rs0[:, None]))
                     ).any(1)
-        safe_r = rv0.clamp(min=0)
-        r_deg = outdeg_flat[2 * safe_r + 1 - rs0.to(I64)]
-        ok = ok & (rv0 >= 0) & (cid[safe_r] >= cid) & (r_deg == degree)
+        od_r, cid_r = rows.take([outdeg, cid], rv0.clamp(min=0))
+        r_deg = od_r.gather(1, (1 - rs0.to(I64))[:, None])[:, 0]
+        ok = ok & (rv0 >= 0) & (cid_r >= cid) & (r_deg == degree)
 
         # sort middles by (avg desc, cid asc), absents last: two stable
         # sorts, the secondary key first (numpy's lexsort order)
-        avgm = torch.where(pres, avg[safe], -torch.inf)
-        midv = torch.where(pres, cid[safe], torch.iinfo(I32).max)
-        o1 = torch.sort(midv, dim=1, stable=True).indices
+        avgm = R.where(pres, avg_m, -torch.inf)
+        midv = R.where(pres, cid_m, torch.iinfo(I32).max)
+        o1 = R.bmap(lambda m: torch.sort(m, dim=1, stable=True).indices,
+                    midv)
         neg = (-avgm).gather(1, o1) + 0.0  # + 0.0: no -0.0 keys
-        order = o1.gather(1, torch.sort(neg, dim=1, stable=True).indices)
+        order = o1.gather(1, R.bmap(
+            lambda x: torch.sort(x, dim=1, stable=True).indices, neg))
         out["mids"].append(mids.gather(1, order))
         out["mstr"].append(nstr[:, strand].gather(1, order))
         out["pres"].append(pres.gather(1, order))
         out["ok"].append(ok)
         out["right"].append(rv0)
         out["rstr"].append(rs0)
-    return ({k: torch.stack(v, 1) for k, v in out.items()}, avg, cid)
+    return {k: R.stack(v, 1) for k, v in out.items()}, avg
 
 
-def _naive_bubble_marks(ok2, mids2, pres2, vc: int):
+def _naive_bubble_marks(rows, ok2, mids2, pres2, vc: int):
     """Union of non-keep present middles over all instances (order-free:
     marking is a monotone set union; the host's sequential scan order
     only affects record emission, which the naive path has none of)."""
-    tgt = torch.where(ok2[:, :, None] & pres2[:, :, 1:], mids2[:, :, 1:],
-                      vc)
-    marks = torch.zeros(vc + 1, dtype=torch.bool, device=ok2.device)
-    marks[tgt.reshape(-1)] = True
-    return marks[:vc]
+    tgt = R.where(ok2[:, :, None] & pres2[:, :, 1:], mids2[:, :, 1:],
+                  NULL)
+    (marks,) = rows.scatter([rows.full(vc, False, torch.bool)], tgt,
+                            [True])
+    return marks
+
+
+def _instances(rows, st, s, shape, avg, vc: int) -> np.ndarray:
+    """The bubble instances as one host int64 array, in the reference
+    scan order (left slot asc, strand asc; shard blocks concatenate in
+    row order). Columns: the four sorted middles' slots, strands and
+    presence, then for the six vertices (middles, left, right) their
+    length, start edge, flip (build orientation) and avg depth (float32
+    bits). Only instance rows cross to the host."""
+    lv, sv = R.bmap(lambda ok: torch.nonzero(ok, as_tuple=True),
+                    shape["ok"])
+
+    def at(x):
+        return R.bmap(lambda t, i, j: t[i, j], x, lv, sv)
+
+    mids = at(shape["mids"])
+    left = R.bmap(lambda a, i: a[i], rows.arange(vc), lv)
+    verts = R.bmap(lambda m, lt, r: torch.cat([m, lt[:, None], r[:, None]],
+                                              1),
+                   mids, left, at(shape["right"]))
+    (rc_end,) = rows.take([st.rc], s.end.clamp(min=0))
+    (rr,) = rows.take([st.ref_rank],
+                      R.stack([rc_end, s.start.clamp(min=0)], 1))
+    flip = rr[:, 0] < rr[:, 1]
+    length, start, flip, avg = rows.take([s.length, s.start, flip, avg],
+                                         verts.clamp(min=0))
+    cols = [verts, at(shape["mstr"]), at(shape["pres"]), length, start,
+            flip, avg.view(I32)]
+    return rows.fetch(R.bmap(
+        lambda *c: torch.cat([x.to(I64) for x in c], 1), *cols))
 
 
 # ---------------------------------------------------------------------------
@@ -561,7 +596,7 @@ class DeviceCleaner:
     Mirrors the graph/cleaning.py API (through pipeline.assemble's
     engine interface); construct from a freshly built host graph (the
     initial build + reference ordering happen once on the host), then
-    every pass runs on the graph's device.
+    every pass runs on the graph's device, or on the mesh's shards.
     """
 
     def __init__(self, g: UnitigGraph, mesh=None):
@@ -577,55 +612,39 @@ class DeviceCleaner:
             if (nd > 1 and self.sdbg.size % nd == 0
                     and self.vc % nd == 0 and self.sdbg.size >= nd):
                 self.mesh = mesh
-        self.static = _upload_static(g.sdbg)
-        self.state = _upload_state(g, self.vc)
+        self.rows = Rows(self.mesh, self.dev)
+        self.static = _upload_static(g.sdbg, self.rows)
+        self.state = _upload_state(g, self.vc, self.rows)
         self._host_graph_template = g
 
-    # -- state at rest: whole, or the mesh's row blocks ---------------
-
-    @property
-    def static(self) -> DevStatic:
-        if self.mesh is None:
-            return self._static
-        return _gather_blocks(self._static, self.mesh, self.dev)
-
-    @static.setter
-    def static(self, st: DevStatic) -> None:
-        self._static = st if self.mesh is None \
-            else _shard_blocks(st, self.mesh)
-
-    @property
-    def state(self) -> DevState:
-        if self.mesh is None:
-            return self._state
-        return _gather_blocks(self._state, self.mesh, self.dev)
-
-    @state.setter
-    def state(self, s: DevState) -> None:
-        self._state = s if self.mesh is None \
-            else _shard_blocks(s, self.mesh)
+    def gathered(self, device=None) -> tuple[DevStatic, DevState]:
+        """The static and mutable state as whole tensors on `device`
+        (default: the graph's). For tests: no pass calls it."""
+        device = self.dev if device is None else torch.device(device)
+        return (_gather_blocks(self.static, self.rows, device),
+                _gather_blocks(self.state, self.rows, device))
 
     # -- helpers ----------------------------------------------------
 
-    def _f32(self, x) -> torch.Tensor:
-        return torch.tensor(x, dtype=F32, device=self.dev)
+    def _f32(self, x) -> R.Blocks:
+        return self.rows.const(x, F32)
 
-    def _i32(self, x) -> torch.Tensor:
-        return torch.tensor(x, dtype=I32, device=self.dev)
+    def _i32(self, x) -> R.Blocks:
+        return self.rows.const(x, I32)
 
-    @staticmethod
-    def _ends(st: DevStatic, s: DevState):
+    def _ends(self, st: DevStatic, s: DevState):
         """(end0, end1): the last edge of each vertex's forward chain
         and of its rc chain (rc_end = rc[start])."""
-        return s.end, st.rc[s.start.clamp(min=0)]
+        (end1,) = self.rows.take([st.rc], s.start.clamp(min=0))
+        return s.end, end1
 
     def _refresh(self, st, s, to_delete, to_dfwd, to_drc,
                  set_changed: bool):
-        self.state = _refresh(st, s, to_delete, to_dfwd, to_drc, self.vc,
-                              set_changed)
+        self.state = _refresh(self.rows, st, s, to_delete, to_dfwd,
+                              to_drc, self.vc, set_changed)
 
     def _zeros_v(self):
-        return torch.zeros(self.vc, dtype=torch.bool, device=self.dev)
+        return self.rows.full(self.vc, False, torch.bool)
 
     # -- cleaning passes (graph/cleaning.py API) --------------------
 
@@ -635,8 +654,9 @@ class DeviceCleaner:
         while thre < max_tip_len:
             st, s = self.static, self.state
             end0, end1 = self._ends(st, s)
-            delete, n = _tips_marks(st, s, end0, end1, self._i32(thre))
-            n = int(n)
+            delete, n = _tips_marks(self.rows, st, s, end0, end1,
+                                    self._i32(thre))
+            (n,) = self.rows.total(n)
             num += n
             if n:
                 self._refresh(st, s, delete, self._zeros_v(),
@@ -649,9 +669,9 @@ class DeviceCleaner:
     def disconnect_weak_links(self, local_ratio: float = 0.1) -> int:
         st, s = self.static, self.state
         end0, end1 = self._ends(st, s)
-        dfwd, drc, n = _weak_marks(st, s, end0, end1,
+        dfwd, drc, n = _weak_marks(self.rows, st, s, end0, end1,
                                    self._f32(local_ratio), self.vc)
-        n = int(n)
+        (n,) = self.rows.total(n)
         if n:
             self._refresh(st, s, self._zeros_v(), dfwd, drc,
                           set_changed=False)
@@ -663,10 +683,10 @@ class DeviceCleaner:
         st, s = self.static, self.state
         end0, end1 = self._ends(st, s)
         remove, n, is_changed = _lld_marks(
-            st, s, end0, end1, self._f32(min_depth),
+            self.rows, st, s, end0, end1, self._f32(min_depth),
             self._i32(max_len), self._i32(local_width),
             self._f32(local_ratio))
-        n, is_changed = torch.stack([n, is_changed.to(n.dtype)]).tolist()
+        n, is_changed = self.rows.total(n, is_changed)
         if n:
             self._refresh(st, s, remove, self._zeros_v(), self._zeros_v(),
                           set_changed=not permanent)
@@ -695,7 +715,7 @@ class DeviceCleaner:
     def remove_low_depth(self, min_depth: float) -> int:
         st, s = self.static, self.state
         remove, n = _low_depth_marks(s, self._f32(min_depth))
-        n = int(n)
+        (n,) = self.rows.total(n)
         # the host path always refreshes here (set_changed=False), but
         # a refresh with no marks is the identity
         if n:
@@ -705,18 +725,17 @@ class DeviceCleaner:
 
     # -- bubbles ----------------------------------------------------
 
-    def _vertex_codes(self, s: DevState, vs: np.ndarray, nxt: np.ndarray
+    def _vertex_codes(self, vs: np.ndarray, start: np.ndarray,
+                      lens: np.ndarray, nxt: np.ndarray
                       ) -> dict[int, np.ndarray]:
-        """Host base codes of the given vertex slots (forward chain
-        orientation; loops walk their intact nxt cycle from the anchor),
-        from a native chain walk over the downloaded nxt."""
+        """Host base codes of the given vertex slots, from their start
+        edges and lengths (forward chain orientation; loops walk their
+        intact nxt cycle from the anchor), by a native chain walk over
+        the downloaded nxt."""
         from ..native import collect_chain_edges
 
         if len(vs) == 0:
             return {}
-        vt = torch.from_numpy(vs).to(self.dev)
-        se = torch.stack([s.start[vt], s.length[vt].to(I64)]).cpu().numpy()
-        start, lens = se[0], se[1]
         eidx = collect_chain_edges(nxt, start, lens)
         if eidx is None:
             raise RuntimeError(
@@ -736,44 +755,44 @@ class DeviceCleaner:
                     similarity: float | None = None,
                     careful_threshold: float | None = None,
                     bubble_records: list | None = None) -> int:
+        rows = self.rows
         st, s = self.static, self.state
         end0, end1 = self._ends(st, s)
-        shape, avg_d, cid_d = _bubble_shape(st, s, end0, end1,
-                                            self._i32(max_len))
-        ok2_np = shape["ok"].cpu().numpy()  # (Vc, 2) bool download
-        n_inst = int(ok2_np.sum())
+        shape, avg_d = _bubble_shape(rows, st, s, end0, end1,
+                                     self._i32(max_len))
+        (n_inst,) = rows.total(shape["ok"].sum())
         if n_inst == 0:
             # the host path refreshes with no marks: the identity
             return 0
 
         if similarity is None and careful_threshold is None:
             # fully device marking: union of non-keep present middles
-            delete = _naive_bubble_marks(shape["ok"], shape["mids"],
+            delete = _naive_bubble_marks(rows, shape["ok"], shape["mids"],
                                          shape["pres"], self.vc)
-            n = int(delete.sum())
+            (n,) = rows.total(delete.sum())
             if n:
                 self._refresh(st, s, delete, self._zeros_v(),
                               self._zeros_v(), set_changed=not permanent)
             return n
 
         # host sequential part over the (small) instance list, in the
-        # reference scan order (left slot asc, strand asc); only (I, .)
-        # and (Vc,) results cross to the host
-        lv, sv = np.nonzero(ok2_np)
-        lt = torch.from_numpy(lv).to(self.dev)
-        svt = torch.from_numpy(sv).to(self.dev)
-        inst = torch.cat([
-            shape["mids"][lt, svt], shape["mstr"][lt, svt].to(I64),
-            shape["pres"][lt, svt].to(I64), shape["right"][lt, svt][:, None],
-        ], 1).cpu().numpy()
-        mids, mstrs = inst[:, 0:4], inst[:, 4:8]
-        press, rights = inst[:, 8:12].astype(bool), inst[:, 12]
-        flip_d = st.ref_rank[st.rc[s.end.clamp(min=0)]] \
-            < st.ref_rank[s.start.clamp(min=0)]
-        avg = avg_d.cpu().numpy()
-        flip = flip_d.cpu().numpy()
-        clen = s.length.cpu().numpy().astype(np.int64) + self.k - 1
-        keeps = mids[:, 0]
+        # reference scan order (left slot asc, strand asc); only
+        # instance rows cross to the host
+        inst = _instances(rows, st, s, shape, avg_d, self.vc)
+        verts, mstrs = inst[:, 0:6], inst[:, 6:10]
+        press = inst[:, 10:14].astype(bool)
+        mids, lv, rights = verts[:, :4], verts[:, 4], verts[:, 5]
+        # per vertex: length, start edge, flip, avg depth
+        known = np.concatenate([press, np.ones((len(inst), 2), bool)], 1)
+        vinfo = {}
+        for v, ln, se, fl, av in zip(
+                verts[known].tolist(), inst[:, 14:20][known].tolist(),
+                inst[:, 20:26][known].tolist(),
+                inst[:, 26:32][known].astype(bool).tolist(),
+                inst[:, 32:38].astype(np.int32).view(np.float32)[known]):
+            vinfo[v] = (ln, se, fl, av)
+        clen = inst[:, 14:18] + (self.k - 1)
+        avg = inst[:, 32:36].astype(np.int32).view(np.float32)
         nxt = None  # downloaded at a pass's first string fetch
         codes_of: dict[int, np.ndarray] = {}
 
@@ -785,29 +804,32 @@ class DeviceCleaner:
             if len(need) == 0:
                 return
             if nxt is None:
-                nxt = s.nxt.to(I32).cpu().numpy()
-            codes_of.update(self._vertex_codes(s, need, nxt))
+                nxt = rows.fetch(s.nxt.to(I32))
+            info = [vinfo[v] for v in need.tolist()]
+            codes_of.update(self._vertex_codes(
+                need, np.array([i[1] for i in info], np.int64),
+                np.array([i[0] for i in info], np.int64), nxt))
 
         def vstring(v, strand):
             c = codes_of[int(v)]
             return packing.revcomp_codes(c) if strand == 1 else c
 
-        sim_ok = np.ones(len(lv), dtype=bool)
+        sim_ok = np.ones(len(inst), dtype=bool)
         if similarity is not None:
             from .cleaning import banded_similarity_batch
 
             pairs = []  # (instance, keep, keep strand, v, v strand)
-            for i in range(len(lv)):
-                a_len = clen[keeps[i]]
+            for i in range(len(inst)):
+                a_len = clen[i, 0]
                 for j in range(1, 4):
                     if not press[i, j]:
                         continue
-                    b_len = clen[mids[i, j]]
+                    b_len = clen[i, j]
                     if not (b_len * similarity <= a_len
                             and a_len * similarity <= b_len):
                         sim_ok[i] = False
                         break
-                    pairs.append((i, keeps[i], mstrs[i, 0], mids[i, j],
+                    pairs.append((i, mids[i, 0], mstrs[i, 0], mids[i, j],
                                   mstrs[i, j]))
             if pairs:
                 fetch([p[1] for p in pairs] + [p[3] for p in pairs])
@@ -824,10 +846,9 @@ class DeviceCleaner:
         records: list[tuple[int, ...]] = []  # vertex slots per instance
         careful = careful_threshold is not None \
             and bubble_records is not None
-        for i in range(len(lv)):
+        for i in range(len(inst)):
             if not sim_ok[i]:
                 continue
-            keep_v = int(keeps[i])
             rec = []
             for j in range(1, 4):
                 if not press[i, j]:
@@ -836,7 +857,7 @@ class DeviceCleaner:
                 if not marked[v]:
                     marked[v] = True
                     num_removed += 1
-                if careful and avg[v] >= avg[keep_v] * careful_threshold:
+                if careful and avg[i, j] >= avg[i, 0] * careful_threshold:
                     rec.append(v)
             if rec:
                 records.append((*rec, int(lv[i]), int(rights[i])))
@@ -844,11 +865,11 @@ class DeviceCleaner:
             fetch([v for r in records for v in r])
             for r in records:
                 for v in r:
-                    c = vstring(v, 1 if flip[v] else 0)
-                    bubble_records.append((packing.decode(c),
-                                           float(avg[v])))
+                    _, _, fl, av = vinfo[v]
+                    c = vstring(v, 1 if fl else 0)
+                    bubble_records.append((packing.decode(c), float(av)))
         if num_removed:
-            self._refresh(st, s, torch.from_numpy(marked).to(self.dev),
+            self._refresh(st, s, rows.put(marked, self.vc, torch.bool),
                           self._zeros_v(), self._zeros_v(),
                           set_changed=not permanent)
         return num_removed
@@ -870,11 +891,12 @@ class DeviceCleaner:
         s = self.state
         g0 = self._host_graph_template
 
-        def host(t, dtype):
-            return t.cpu().numpy().astype(dtype)
+        def host(t, dtype=None):
+            a = self.rows.fetch(t)
+            return a if dtype is None else a.astype(dtype)
 
         sdbg = self.sdbg
-        sdbg.valid = s.valid.cpu().numpy().copy()
+        sdbg.valid = host(s.valid).copy()
         sdbg._rvc = None
         start = host(s.start, np.int32)
         end = host(s.end, np.int32)
@@ -882,13 +904,13 @@ class DeviceCleaner:
             g0.k, sdbg, start, end,
             sdbg.rc[end].astype(np.int32), sdbg.rc[start].astype(np.int32),
             host(s.length, np.int32), host(s.depth, np.int64),
-            s.is_loop.cpu().numpy(), s.is_pal.cpu().numpy(),
+            host(s.is_loop), host(s.is_pal),
             host(s.vid, np.int32),
             chain_start=host(s.chain_start, np.int32),
             edge_pos=host(s.edge_pos, np.int32),
             nxt=host(s.nxt, np.int32), prv=host(s.prv, np.int32),
         )
-        g.alive = s.alive.cpu().numpy()
-        g.changed = s.changed.cpu().numpy()
+        g.alive = host(s.alive)
+        g.changed = host(s.changed)
         # slot-space arrays are Vc-capacity; host consumers mask alive
         return g

@@ -1195,33 +1195,60 @@ def _run_members_valid(starts, run_start, valid):
     return ok, clip
 
 
-def _unique_member(ok, rows):
-    """The single flagged row (assuming exactly one), else -1."""
-    return torch.where(ok, rows, -1).amax(dim=-1)
-
-
 def simple_path_links(run_start, nxt_link, rc, valid):
     """next[e], prev[e]: the simple-path successor/predecessor, -1 if
-    none, as whole-graph torch passes on the tensors' device.
+    none, as whole-graph torch passes on the tensors' device (one block
+    of simple_path_links_rows: plain indexing, no exchange)."""
+    from ..parallel.rows import Blocks, Rows
+
+    nxt, prv = simple_path_links_rows(
+        Rows(None, valid.device),
+        *(Blocks([t]) for t in (run_start, nxt_link, rc, valid)))
+    return nxt.b[0], prv.b[0]
+
+
+def simple_path_links_rows(rows, run_start, nxt_link, rc, valid):
+    """simple_path_links over row blocks (parallel/rows.py).
 
     next[e] = the unique out-edge f of target(e) when target(e) has
     out-degree 1 and in-degree 1 (reference SDBG::NextSimplePathEdge,
     sdbg.h:418-427); prev is symmetric (PrevSimplePathEdge,
     sdbg.h:404-412). In-edge sets come by strand symmetry, and validity
-    is rc-symmetric, so degrees count pre-rc rows directly."""
-    ok_ot, rows_ot = _run_members_valid(nxt_link, run_start, valid)
+    is rc-symmetric, so degrees count pre-rc rows directly. Every row
+    another shard owns is read through ``rows.take``; a run's four
+    members may straddle a block edge, so they are taken too."""
+    from ..parallel import rows as R
+
+    cap = rows.n * valid.b[0].shape[0]
+    # run_start where valid, else -1: one column to read (safe >= 0);
+    # pad rows are inert (own-index run, invalid)
+    run_valid = R.where(valid, run_start, -1)
+
+    def members(starts):
+        safe = starts.clamp(min=0)
+        idx = R.bmap(lambda t: t[:, None] + torch.arange(4, device=t.device),
+                     safe)
+        clip = idx.clamp(max=cap - 1)
+        (rs,) = rows.take([run_valid], clip)
+        return (starts >= 0)[:, None] & (rs == safe[:, None]), clip
+
+    def unique_member(ok, r):
+        """The single flagged row (assuming exactly one), else -1."""
+        return R.where(ok, r, -1).amax(dim=-1)
+
+    rs_rc, nl_rc = rows.take([run_start, nxt_link], rc)
+    ok_ot, rows_ot = members(nxt_link)
     odt = ok_ot.sum(-1)
-    ok_it, _ = _run_members_valid(run_start[rc], run_start, valid)
-    idt = ok_it.sum(-1)
-    ok_os, _ = _run_members_valid(run_start, run_start, valid)
-    ods = ok_os.sum(-1)
-    ok_is, rows_is = _run_members_valid(nxt_link[rc], run_start, valid)
+    idt = members(rs_rc)[0].sum(-1)
+    ods = members(run_start)[0].sum(-1)
+    ok_is, rows_is = members(nl_rc)
     ids = ok_is.sum(-1)
-    nxt = torch.where(valid & (odt == 1) & (idt == 1),
-                      _unique_member(ok_ot, rows_ot), -1)
-    prv_pre = _unique_member(ok_is, rows_is)
-    prv = torch.where(valid & (ids == 1) & (ods == 1) & (prv_pre >= 0),
-                      rc[torch.clamp(prv_pre, min=0)], -1)
+    nxt = R.where(valid & (odt == 1) & (idt == 1),
+                  unique_member(ok_ot, rows_ot), -1)
+    prv_pre = unique_member(ok_is, rows_is)
+    (rc_pre,) = rows.take([rc], prv_pre.clamp(min=0))
+    prv = R.where(valid & (ids == 1) & (ods == 1) & (prv_pre >= 0),
+                  rc_pre, -1)
     return nxt, prv
 
 

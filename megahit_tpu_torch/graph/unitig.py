@@ -30,7 +30,8 @@ NULL = np.int32(-1)
 
 
 def _list_rank(nxt: torch.Tensor, prv: torch.Tensor, rounds: int):
-    """Pointer-double both directions (torch, on the links' device).
+    """Pointer-double both directions (torch, on the links' device; one
+    block of _list_rank_rows: plain indexing, no exchange).
 
     Returns (end, dist_to_end, start, pos, min_reach):
       end[e]   = last edge of e's chain (self-stable for cycles)
@@ -38,19 +39,31 @@ def _list_rank(nxt: torch.Tensor, prv: torch.Tensor, rounds: int):
       pos[e]   = distance from start (undefined for cycles)
       min_reach[e] = min edge index in e's forward orbit (cycle rep)
     """
-    e = nxt.shape[0]
-    idx = torch.arange(e, device=nxt.device)
-    n = torch.where(nxt >= 0, nxt, idx)
-    p = torch.where(prv >= 0, prv, idx)
+    from ..parallel.rows import Blocks, Rows
+
+    out = _list_rank_rows(Rows(None, nxt.device), Blocks([nxt]),
+                          Blocks([prv]), rounds)
+    return tuple(x.b[0] for x in out)
+
+
+def _list_rank_rows(rows, nxt, prv, rounds: int):
+    """_list_rank over row blocks (parallel/rows.py): each round's reads
+    at n and at p are one take each."""
+    from ..parallel import rows as R
+
+    idx = rows.arange(rows.n * nxt.b[0].shape[0])
+    n = R.where(nxt >= 0, nxt, idx)
+    p = R.where(prv >= 0, prv, idx)
     d_end = (nxt >= 0).to(torch.int32)
     d_start = (prv >= 0).to(torch.int32)
     mn = idx
     for _ in range(rounds):
-        d_end = d_end + d_end[n]
-        d_start = d_start + d_start[p]
-        mn = torch.minimum(mn, mn[n])
-        n = n[n]
-        p = p[p]
+        de_n, mn_n, n_n = rows.take([d_end, mn, n], n)
+        ds_p, p_p = rows.take([d_start, p], p)
+        d_end = d_end + de_n
+        d_start = d_start + ds_p
+        mn = R.minimum(mn, mn_n)
+        n, p = n_n, p_p
     return n, d_end, p, d_start, mn
 
 

@@ -90,6 +90,39 @@ class Mesh:
         dist.all_to_all_single(out, send.contiguous())
         return [out]
 
+    def all_to_all_v(self, sends: list[torch.Tensor],
+                     splits: list[list[int]],
+                     recv_splits: list[list[int]] | None = None):
+        """Uneven all-to-all. sends[j]: local shard j's rows, the first
+        splits[j][0] bound for shard 0, the next splits[j][1] for shard
+        1, and so on (any may be 0). Returns (recvs, recv_splits): per
+        local shard, the rows every shard sent it, in shard order, and
+        how many came from each. Pass recv_splits when the caller
+        already knows them (a reply to an exchange), to skip the
+        exchange of the sizes."""
+        if not self.distributed:
+            offs = [np.concatenate([[0], np.cumsum(s)]).tolist()
+                    for s in splits]
+            recvs, got = [], []
+            for j in range(self.size):
+                recvs.append(torch.cat([
+                    sends[i][offs[i][j]: offs[i][j + 1]].to(
+                        self.devices[j]) for i in range(self.size)]))
+                got.append([splits[i][j] for i in range(self.size)])
+            return recvs, got
+        (send,), (split,) = sends, splits
+        if recv_splits is None:
+            n = torch.tensor(split, dtype=torch.int64, device=send.device)
+            r = torch.empty_like(n)
+            dist.all_to_all_single(r, n)
+            recv_splits = [r.tolist()]
+        (rsplit,) = recv_splits
+        out = send.new_empty((sum(rsplit),) + tuple(send.shape[1:]))
+        dist.all_to_all_single(out, send.contiguous(),
+                               output_split_sizes=rsplit,
+                               input_split_sizes=split)
+        return [out], recv_splits
+
     def all_gather(self, blocks: list[torch.Tensor],
                    device=None) -> torch.Tensor:
         """Every shard's equal-sized block, concatenated in shard order
@@ -113,6 +146,17 @@ class Mesh:
                          device=self.devices[self.local[0]])
         dist.all_reduce(t)
         return int(t.item())
+
+    def psum_vec(self, vectors: list[torch.Tensor]) -> list[int]:
+        """Elementwise sum over every shard of one int64 vector per
+        local shard, with one host sync."""
+        t = vectors[0]
+        for v in vectors[1:]:
+            t = t + v.to(t.device)
+        if self.distributed:
+            t = t.clone()
+            dist.all_reduce(t)
+        return t.tolist()
 
 
 def init_distributed(coordinator: str | None = None,

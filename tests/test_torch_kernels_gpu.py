@@ -283,7 +283,7 @@ def test_device_engine_passes_match_host_engine(cleaning_case):
     min_depth = infer_min_depth(hs)
     host = _HostEngine(build_unitig_graph(hs))
     dev = tad.DeviceCleaner(build_unitig_graph(ds))
-    assert dev.state.valid.is_cuda
+    assert dev.state.valid.b[0].is_cuda
     hrec, drec = [], []
     removed = 0
     for (step, hstep), (_, dstep) in zip(

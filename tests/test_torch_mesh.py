@@ -29,6 +29,7 @@ from megahit_tpu_torch.graph.sdbg import Sdbg, sdbg_from_edges
 from megahit_tpu_torch.graph.unitig import build_unitig_graph
 from megahit_tpu_torch.parallel import multihost
 from megahit_tpu_torch.parallel.multihost import Mesh
+from megahit_tpu_torch.parallel.rows import Blocks
 from megahit_tpu_torch.pipeline import assemble as tasm
 
 from cleaning_cases import records
@@ -216,10 +217,11 @@ def test_mesh_cleaner_actually_shards():
                                                       1)))
     assert eng.mesh is mesh and ref.mesh is None
     e, vc = eng.sdbg.size, eng.vc
-    for held, rows in ((eng._static, e), (eng._state, None)):
+    for held, rows in ((eng.static, e), (eng.state, None)):
         for name, blocks in vars(held).items():
-            if not isinstance(blocks, list):
+            if not isinstance(blocks, Blocks):
                 continue
+            blocks = blocks.b
             n = rows if rows is not None else (
                 e if name in ("valid", "vid", "nxt", "prv", "chain_start",
                               "edge_pos") else vc)
@@ -267,7 +269,7 @@ def test_mesh_eligibility(n):
     g = build_unitig_graph(_graph(11, 4000, 900, 0.0, 1))
     eng = tad.DeviceCleaner(g, mesh=Mesh(["cpu"] * n))
     assert eng.mesh is None
-    assert not isinstance(eng._static.run_start, list)
+    assert len(eng.static.run_start.b) == 1
 
 
 def test_cli_has_mesh_and_lacks_only_platform():
