@@ -10,8 +10,9 @@ Phases, each printing its own lines:
 2. build the CUDA kernels (one nvcc per source, in parallel) and the
    host C++ helpers from this checkout;
 3. a bacterial-isolate read set: Illumina-like paired FASTQ from
-   scripts/make_realistic.py (2 Mbp genome, 30x, seed 1; cached in
-   chip_smoke_data/);
+   scripts/make_realistic.py (1 Mbp genome, 30x, seed 1; cached in
+   chip_smoke_data/; cut from 2 Mbp to keep the script, with [14],
+   inside its time limit);
 4. kernel parity on the card, each kernel against its plain PyTorch
    version, exact equality: at the main path's shapes (the isolate's
    pool at k1=22), at k1 in {32, 42, 56}, and (kernel 2) the main
@@ -80,8 +81,8 @@ Phases, each printing its own lines:
    just after (each must be > 0) and both assemble stages cleaning on the
    device, and the same chain on cpu: every artifact equal (.npz array by
    array, the rest byte for byte); read2sdbg --need-mercy --memory
-   600000000 on cuda equal to count + seq2sdbg (valid keys and
-   multiplicities); the k=21 graph (4.07M rows) through
+   300000000 on cuda equal to count + seq2sdbg (valid keys and
+   multiplicities); the k=21 graph (~2M rows) through
    save_sharded(rows_per_shard=2^20) (at least 2 shards), load_sharded
    and load_sharded_rows over two bucket ranges, equal; checkcpu and
    checknative each print 1; the link probe's milliseconds (it must keep
@@ -108,11 +109,31 @@ Phases, each printing its own lines:
    walls, idle shares and kernel 1 and 2 launch counts (0 under --mesh:
    the sharded count is torch ops, as megahit_tpu's mesh count reaches
    no Pallas kernel; 1 each without).
-9. (printed last) the script's total seconds.
+14. the 20-genome community of scripts/make_community.py --seed 42 at
+   its defaults (7.13 Mbp of genome, log-uniform 2 to 80x, ~195 Mbp of
+   150 bp pairs, a 1 kbp element in 6 genomes; cached in
+   chip_smoke_data/): kernel 1 over one 2^26-base chunk of the count's
+   chunked branch and kernel 2 over the branch's 2^28 sorted,
+   sentinel-padded rows, each against its plain version bit for bit,
+   with times, byte bounds and (kernel 2) torch.unique_consecutive;
+   (a) --k-list 21 on cuda, which must log the chunked count in 3 or
+   more chunks and launch kernel 1 3 or more times and kernel 2 once
+   or more (counters set to 0 just before, read just after), with wall,
+   stages, peak device memory, idle share and the count's windows,
+   padded rows, distinct and solid keys; (b) the same on cpu, whose
+   final.contigs.fa must be byte-identical to (a)'s; (c) the default k
+   list on cuda (launches as in (a), every rung cleaned on the device;
+   rungs, wall, stages, assemble split, idle share, peak memory), whose
+   contigs are held to the genomes by 32-mer recall (each genome at 10x
+   or more at 0.90 or more; the contig total at most 1.1 x the genome
+   total).
+9. (printed last) the script's total seconds and each phase's.
 
 It then prints the card line, one JSON line with every kernel's numbers
 (kernels 1, 2 with the launches of [6] and, as ladder_launches, of [8]
-and, as stage_launches, of [12]'s count stage), and as its last line
+and, as stage_launches, of [12]'s count stage; kernels 1, 2 again at the
+community's shapes, with the launches of [14] (a) and, as
+ladder_launches, of (c)), and as its last line
 {"ok": true, "device": {...}}. Any failed phase
 exits non-zero without that line. Without a GPU it exits non-zero at
 once.
@@ -130,15 +151,23 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(HERE, "chip_smoke_data")
-GENOME_BP = 2_000_000
+GENOME_BP = 1_000_000
 COVERAGE = 30
 # H100 SXM memory rate (NVIDIA data sheet), bytes/s
 HBM_BYTES_PER_S = 3.35e12
 # batch of the chunked count check (the isolate's pool is 4 batches)
-CHUNK = 1 << 24
-# -m bytes of the 1-pass run in [11]: 16.7M rows a round at k1=22, so the
-# isolate's ~104M spilled rows take more than 4 rounds
-ONEPASS_MEMORY = 600_000_000
+CHUNK = 1 << 23
+# -m bytes of the 1-pass run in [11]: 8.3M rows a round at k1=22, so the
+# isolate's ~52M spilled rows take more than 4 rounds
+ONEPASS_MEMORY = 300_000_000
+# [14]: scripts/make_community.py --seed 42 at its defaults (RESULTS.md's
+# 20-genome community, 195 Mbp of reads)
+COMMUNITY_SEED = 42
+# the count's chunk at the default -m (0.9 x RAM): the driver's batch is
+# max(2^20, min(2^26, budget // 64)) windows, 2^26 above 4.3 GB of RAM
+COUNT_CHUNK = 1 << 26
+# [14] (c)'s limits, set before the first run on the card
+RECALL_MIN, RECALL_MIN_COV, TOTAL_MAX = 0.90, 10.0, 1.1
 
 
 def log(msg: str) -> None:
@@ -621,6 +650,19 @@ def _device_profile(tag: str, prof, wall: float) -> None:
             f"x{e.count}: {e.key[:70]}")
 
 
+def _log_rungs(tag: str, out: str) -> list[str]:
+    """Prints a ladder run's k list and the rungs it assembled."""
+    with open(os.path.join(out, "log")) as fh:
+        text = fh.read()
+    klist = re.search(r"k list: (\S+)", text).group(1)
+    rungs = re.findall(r"stage \d+ \(stage_assemble (\d+)\)", text)
+    early = re.search(r"early termination at k=(\d+)", text)
+    log(f"{tag} k list {klist}; rungs assembled: {','.join(rungs)}"
+        + (f"; early termination at k={early.group(1)}" if early else
+           "; no early termination"))
+    return rungs
+
+
 def _check_contigs(tag: str, out: str, data) -> None:
     from megahit_tpu_torch.graph.output import contig_stats
 
@@ -673,25 +715,33 @@ def _log_split(tag: str, out_cuda: str, out_cpu: str) -> None:
                      "prune_output")))
 
 
-def phase_main_path(torch, data) -> dict:
+def _cuda_run(torch, argv: list[str]):
+    """The CLI on cuda with every kernel launch counter set to 0 just
+    before and read just after, under torch.profiler (device activity
+    only, CUPTI: the host side runs unrecorded). Returns (wall seconds,
+    launches, peak device memory in bytes, the profile)."""
     from megahit_tpu_torch.core import kernels
 
     from torch.profiler import ProfilerActivity, profile
 
-    out = os.path.join(DATA, "isolate_out")
     torch.cuda.reset_peak_memory_stats()
     kernels.canonical_all_kmers.launches = 0
     kernels.count_sorted_runs.launches = 0
-    # device activity only (CUPTI): the host side runs unrecorded
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        _run_cli(["-1", data["r1"], "-2", data["r2"], "--k-list", "21",
-                  "--device", "cuda", "-f", "-o", out])
+        _run_cli(argv + ["--device", "cuda"])
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
     launches = {"canonical_all_kmers": kernels.canonical_all_kmers.launches,
                 "count_sorted_runs": kernels.count_sorted_runs.launches}
-    peak = torch.cuda.max_memory_allocated()
+    return wall, launches, torch.cuda.max_memory_allocated(), prof
+
+
+def phase_main_path(torch, data) -> dict:
+    out = os.path.join(DATA, "isolate_out")
+    wall, launches, peak, prof = _cuda_run(
+        torch, ["-1", data["r1"], "-2", data["r2"], "--k-list", "21", "-f",
+                "-o", out])
     log(f"[6] isolate --k-list 21 on cuda: {wall:.1f}s wall, "
         f"launches {launches}, peak device memory {peak / 2**30:.2f} GiB")
     _device_profile("[6]", prof, wall)
@@ -727,36 +777,17 @@ def phase_cpu_match(data) -> None:
 def phase_ladder(torch, data) -> dict:
     """The isolate with the default k list on cuda, with every kernel
     launch counter set to 0 just before and read just after."""
-    from megahit_tpu_torch.core import kernels
-
-    from torch.profiler import ProfilerActivity, profile
-
     out = os.path.join(DATA, "isolate_ladder")
-    torch.cuda.reset_peak_memory_stats()
-    kernels.canonical_all_kmers.launches = 0
-    kernels.count_sorted_runs.launches = 0
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        _run_cli(["-1", data["r1"], "-2", data["r2"], "--device", "cuda",
-                  "-f", "-o", out])
-        torch.cuda.synchronize()
-        wall = time.monotonic() - t0
-    launches = {"canonical_all_kmers": kernels.canonical_all_kmers.launches,
-                "count_sorted_runs": kernels.count_sorted_runs.launches}
-    peak = torch.cuda.max_memory_allocated()
-    with open(os.path.join(out, "log")) as fh:
-        text = fh.read()
-    klist = re.search(r"k list: (\S+)", text).group(1)
-    rungs = re.findall(r"stage \d+ \(stage_assemble (\d+)\)", text)
-    early = re.search(r"early termination at k=(\d+)", text)
+    wall, launches, peak, prof = _cuda_run(
+        torch, ["-1", data["r1"], "-2", data["r2"], "-f", "-o", out])
     log(f"[8] isolate, default k list on cuda: {wall:.1f}s wall, "
         f"launches {launches}, peak device memory {peak / 2**30:.2f} GiB")
-    log(f"[8] k list {klist}; rungs assembled: {','.join(rungs)}"
-        + (f"; early termination at k={early.group(1)}" if early else
-           "; no early termination"))
+    rungs = _log_rungs("[8]", out)
     _device_profile("[8]", prof, wall)
     _log_stages("[8]", out)
     _check_cleaning("[8]", out)
+    with open(os.path.join(out, "log")) as fh:
+        text = fh.read()
     log("[8] local low-depth passes on the device, by rung: " + ", ".join(
         f"k={k} {n} in {t}s" for k, (n, t) in zip(rungs, re.findall(
             r"local low depth: (\d+) passes on the device, ([0-9.]+)s",
@@ -1428,31 +1459,21 @@ def _mesh_cli(torch, data) -> None:
     size 1, against the same run without --mesh in this process."""
     import socket
 
-    from megahit_tpu_torch.core import kernels
-
-    from torch.profiler import ProfilerActivity, profile
-
     root = os.path.join(DATA, "mesh_cli")
     argv = ["-1", data["r1"], "-2", data["r2"], "--k-list", "21,41",
-            "--no-local", "--device", "cuda", "-f"]
-    kernels.canonical_all_kmers.launches = 0
-    kernels.count_sorted_runs.launches = 0
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        _run_cli(argv + ["-o", os.path.join(root, "plain")])
-        torch.cuda.synchronize()
-        wall = time.monotonic() - t0
+            "--no-local", "-f"]
+    wall, launches, _, prof = _cuda_run(
+        torch, argv + ["-o", os.path.join(root, "plain")])
     busy = sum(e.self_device_time_total for e in prof.key_averages()
                if e.self_device_time_total > 0) / 1e6
-    launches = {"canonical_all_kmers": kernels.canonical_all_kmers.launches,
-                "count_sorted_runs": kernels.count_sorted_runs.launches}
+    del prof
     torch.cuda.empty_cache()
     with socket.socket() as sk:
         sk.bind(("localhost", 0))
         port = sk.getsockname()[1]
     res = subprocess.run(
         [sys.executable, "-c", MESH_CHILD, HERE, str(port)] + argv
-        + ["--mesh", "-o", os.path.join(root, "mesh")],
+        + ["--device", "cuda", "--mesh", "-o", os.path.join(root, "mesh")],
         capture_output=True, text=True, timeout=400, cwd=HERE)
     if res.returncode != 0:
         fail(f"[13] the --mesh child failed:\n{res.stderr[-3000:]}")
@@ -1502,6 +1523,248 @@ def phase_mesh(torch, data) -> None:
     log(f"[13] mesh phase {time.monotonic() - t0:.1f}s")
 
 
+def phase_community_data() -> dict:
+    """[14] the 20-genome community (make_community.py --seed 42 at its
+    defaults), generated once into chip_smoke_data/."""
+    d = os.path.join(DATA, f"community_seed{COMMUNITY_SEED}")
+    manifest = os.path.join(d, "manifest.json")  # written last
+    if not os.path.exists(manifest):
+        t0 = time.monotonic()
+        subprocess.run([sys.executable, os.path.join(
+            HERE, "scripts", "make_community.py"), d, "--seed",
+            str(COMMUNITY_SEED)], check=True)
+        log(f"[14] generated the community in {time.monotonic() - t0:.1f}s")
+    with open(manifest) as fh:
+        genomes = json.load(fh)
+    log(f"[14] community: {len(genomes)} genomes, "
+        f"{sum(g['bp'] for g in genomes)} bp of genome, "
+        f"{sum(g['pairs'] for g in genomes)} pairs ({d})")
+    return {"dir": d, "r1": os.path.join(d, "reads_1.fa"),
+            "r2": os.path.join(d, "reads_2.fa"), "genomes": genomes}
+
+
+def _community_kernels(torch, comm) -> list[dict]:
+    """Kernels 1 and 2 at the community's shapes on the card, each
+    against its plain version bit for bit: kernel 1 over the first
+    2^26-base chunk of the count's chunked branch, kernel 2 over the
+    branch's sorted, sentinel-padded rows; times (CUDA events), byte
+    bounds and, for kernel 2, torch.unique_consecutive."""
+    from megahit_tpu_torch.core import kernels, kmerops
+    from megahit_tpu_torch.graph import counter
+    from megahit_tpu_torch.io.lib import build_lib
+
+    k1 = 22
+    w = kmerops.words_per_kmer(k1)
+    t0 = time.monotonic()
+    lib = build_lib([comm["r1"]], [comm["r2"]], [], [])
+    pool, starts = lib.pool, lib.starts
+    n_bases = int(starts[-1])
+    log(f"[14] build_lib: {lib.num_seqs} reads, {n_bases} read bases "
+        f"({time.monotonic() - t0:.1f}s)")
+
+    _, sub, _ = next(counter._chunks(pool, starts, k1, COUNT_CHUNK))
+    err1 = _parity_k1(torch, sub, k1)
+    packed = torch.from_numpy(sub.view("int32")).cuda()
+    n_out = kernels.q_padded(packed.shape[0], k1) * 16
+    ms1 = cuda_ms(torch, lambda: kernels.canonical_all_kmers(packed, k1))
+    plain1 = cuda_ms(
+        torch, lambda: kernels.canonical_all_kmers_plain(packed, k1),
+        iters=3, warm=1)
+    bytes1 = packed.shape[0] * 4 + w * 4 * n_out
+    bound1 = bytes1 / HBM_BYTES_PER_S * 1e3
+    log(f"[14] canonical_all_kmers k1={k1} over a {COUNT_CHUNK}-base chunk "
+        f"({packed.shape[0]} words): {n_out} offsets, max_abs_err {err1}, "
+        f"{ms1:.3f} ms (plain {plain1:.3f} ms), bound {bound1:.3f} ms "
+        f"({bytes1} B), {bound1 / ms1:.1%} of bound")
+    del packed
+
+    words, n_inv, n_chunks = counter._chunked_sorted_words(
+        pool, starts, k1, COUNT_CHUNK, "cuda")
+    cols = [kmerops.i32_bits(c) for c in words]
+    key = kmerops.pack_sort_keys(words)[0]
+    del words
+    n = cols[0].shape[0]
+    err2 = _parity_k2(torch, cols, n_inv)
+    ms2 = cuda_ms(torch, lambda: kernels.count_sorted_runs(cols, n_inv))
+    plain2 = cuda_ms(
+        torch, lambda: kernels.count_sorted_runs_plain(cols, n_inv),
+        iters=2, warm=1)
+    lib2 = cuda_ms(torch, lambda: torch.unique_consecutive(
+        key, return_counts=True), iters=3, warm=1)
+    bytes2 = w * 4 * n + 5 * n
+    bound2 = bytes2 / HBM_BYTES_PER_S * 1e3
+    log(f"[14] count_sorted_runs over the chunked branch's rows "
+        f"({n_chunks} chunks): n={n}, n_inv={n_inv}, max_abs_err {err2}, "
+        f"{ms2:.3f} ms (plain {plain2:.3f} ms, unique_consecutive "
+        f"{lib2:.3f} ms), bound {bound2:.3f} ms ({bytes2} B), "
+        f"{bound2 / ms2:.1%} of bound")
+    del cols, key
+    torch.cuda.empty_cache()
+    if err1 or err2:
+        fail(f"[14] kernel parity at the community's shapes: "
+             f"canonical_all_kmers {err1}, count_sorted_runs {err2}")
+    return [
+        {"name": "canonical_all_kmers/community", "route": "cuda",
+         "source": "megahit_tpu_torch/csrc/canonical_kmers.cu",
+         "replaces": "megahit_tpu/core/pallas_kernels.py:105",
+         "launches": 0, "max_abs_err": err1, "ms": ms1,
+         "plain_ms": plain1, "bound_ms": bound1, "bound_by": "bytes",
+         "library_ms": None},
+        {"name": "count_sorted_runs/community", "route": "cuda",
+         "source": "megahit_tpu_torch/csrc/count_runs.cu",
+         "replaces": "megahit_tpu/core/pallas_kernels.py:286",
+         "launches": 0, "max_abs_err": err2, "ms": ms2,
+         "plain_ms": plain2, "bound_ms": bound2, "bound_by": "bytes",
+         "library_ms": lib2},
+    ]
+
+
+def _fasta_codes(path: str) -> list:
+    """Each record of a FASTA file as uint8 codes (A, C, G, T = 0..3)."""
+    import numpy as np
+
+    lut = np.zeros(256, np.uint8)
+    lut[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4, dtype=np.uint8)
+    seqs, cur = [], []
+    with open(path, "rb") as fh:
+        for line in fh:
+            if line.startswith(b">"):
+                if cur:
+                    seqs.append(lut[np.frombuffer(b"".join(cur), np.uint8)])
+                cur = []
+            else:
+                cur.append(line.strip())
+    if cur:
+        seqs.append(lut[np.frombuffer(b"".join(cur), np.uint8)])
+    return seqs
+
+
+def _canonical_32mers(seqs):
+    """Canonical 32-mers (2 bits a base in a u64) of every window of each
+    sequence, as scripts/check_recovery.py counts them."""
+    import numpy as np
+
+    out = [np.zeros(0, np.uint64)]
+    two = np.uint64(2)
+    for c in seqs:
+        n = len(c) - 31
+        if n <= 0:
+            continue
+        c = c.astype(np.uint64)
+        rc = (np.uint64(3) - c)[::-1]
+        fw = np.zeros(n, np.uint64)
+        rv = np.zeros(n, np.uint64)
+        for j in range(32):
+            fw = (fw << two) | c[j:j + n]
+            rv = (rv << two) | rc[j:j + n]
+        out.append(np.minimum(fw, rv[::-1]))
+    return np.concatenate(out)
+
+
+def _check_recall(tag: str, out: str, comm) -> None:
+    """Per-genome 32-mer recall of a run's contigs: every genome at
+    RECALL_MIN_COV or more must reach RECALL_MIN, and the contig total
+    stay at most TOTAL_MAX x the genome total."""
+    import numpy as np
+
+    contigs = _fasta_codes(os.path.join(out, "final.contigs.fa"))
+    table = np.unique(_canonical_32mers(contigs))
+    total = sum(len(c) for c in contigs)
+    genome_total = sum(g["bp"] for g in comm["genomes"])
+    low = []
+    for g in comm["genomes"]:
+        q = _canonical_32mers(_fasta_codes(os.path.join(
+            comm["dir"], f"genome_{g['genome']}.fa")))
+        i = np.minimum(np.searchsorted(table, q), len(table) - 1)
+        rec = float((table[i] == q).mean()) if len(q) and len(table) else 0.0
+        log(f"{tag}   genome {g['genome']:>2}: {g['bp']} bp, cov "
+            f"{g['cov']:.2f}x{', mobile' if g['mobile'] else ''}: 32-mer "
+            f"recall {rec:.4f}")
+        if g["cov"] >= RECALL_MIN_COV and rec < RECALL_MIN:
+            low.append((g["genome"], g["cov"], rec))
+    log(f"{tag} contigs: {len(contigs)}, total {total} bp (genome total "
+        f"{genome_total} bp, limit {TOTAL_MAX} x)")
+    if low:
+        fail(f"{tag} genomes at {RECALL_MIN_COV}x or more below recall "
+             f"{RECALL_MIN}: {low}")
+    if total > TOTAL_MAX * genome_total:
+        fail(f"{tag} contig total {total} above {TOTAL_MAX} x {genome_total}")
+
+
+def phase_community(torch) -> tuple[list[dict], dict, dict]:
+    """[14] the community on the card: kernels 1 and 2 at its shapes,
+    (a) --k-list 21 on cuda through the count's chunked branch, (b) the
+    same on cpu, byte-identical, (c) the default k list on cuda, held to
+    the genomes by 32-mer recall."""
+    t_all = time.monotonic()
+    comm = phase_community_data()
+    kern = _community_kernels(torch, comm)
+    reads = ["-1", comm["r1"], "-2", comm["r2"], "-f"]
+
+    out_a = os.path.join(DATA, "community_k21")
+    wall, launches_a, peak, prof = _cuda_run(
+        torch, reads + ["--k-list", "21", "-o", out_a])
+    log(f"[14] (a) community --k-list 21 on cuda: {wall:.1f}s wall, "
+        f"launches {launches_a}, peak device memory {peak / 2**30:.2f} GiB")
+    with open(os.path.join(out_a, "log")) as fh:
+        m = re.search(r"count \(chunked\): (\d+) chunks of (\d+) bases, "
+                      r"(\d+) windows padded to (\d+) rows -> (\d+) distinct"
+                      r" canonical \d+-mers, (\d+) solid", fh.read())
+    if not m or int(m.group(1)) < 3:
+        fail("[14] (a) the count did not take the chunked branch in 3 or "
+             "more chunks")
+    log(f"[14] (a) count: chunked branch, {m.group(1)} chunks of "
+        f"{m.group(2)} bases, {m.group(3)} windows padded to {m.group(4)} "
+        f"rows, {m.group(5)} distinct and {m.group(6)} solid keys")
+    _device_profile("[14] (a)", prof, wall)
+    del prof
+    _log_stages("[14] (a)", out_a)
+    _check_cleaning("[14] (a)", out_a)
+    if launches_a["canonical_all_kmers"] < 3 \
+            or launches_a["count_sorted_runs"] < 1:
+        fail(f"[14] (a) kernel launches {launches_a}: kernel 1 needs 3 or "
+             "more, kernel 2 one or more")
+
+    out_b = os.path.join(DATA, "community_k21_cpu")
+    t0 = time.monotonic()
+    _run_cli(reads + ["--k-list", "21", "--device", "cpu", "-o", out_b])
+    wall_b = time.monotonic() - t0
+    with open(os.path.join(out_a, "final.contigs.fa"), "rb") as f:
+        a = f.read()
+    with open(os.path.join(out_b, "final.contigs.fa"), "rb") as f:
+        b = f.read()
+    if a != b or not a:
+        fail("[14] (b) community final.contigs.fa differs between cpu and "
+             "cuda")
+    log(f"[14] (b) community --k-list 21 on cpu: {wall_b:.1f}s wall, "
+        f"final.contigs.fa byte-identical to (a)'s ({a.count(b'>')} "
+        "contigs)")
+    _log_stages("[14] (b)", out_b)
+    _log_split("[14] (a) | (b)", out_a, out_b)
+
+    out_c = os.path.join(DATA, "community_ladder")
+    torch.cuda.empty_cache()
+    wall, launches_c, peak, prof = _cuda_run(torch, reads + ["-o", out_c])
+    log(f"[14] (c) community, default k list on cuda: {wall:.1f}s wall, "
+        f"launches {launches_c}, peak device memory {peak / 2**30:.2f} GiB")
+    _log_rungs("[14] (c)", out_c)
+    _device_profile("[14] (c)", prof, wall)
+    del prof
+    _log_stages("[14] (c)", out_c)
+    split = _assemble_split(out_c)
+    log("[14] (c) assemble split summed over rungs: " + ", ".join(
+        f"{name} {split.get(name, 0.0):.2f}s" for name in (
+            "sdbg_tips", "unitig_build", "cleaning_rounds", "prune_output")))
+    _check_cleaning("[14] (c)", out_c)
+    if launches_c["canonical_all_kmers"] < 3 \
+            or launches_c["count_sorted_runs"] < 1:
+        fail(f"[14] (c) kernel launches {launches_c}: kernel 1 needs 3 or "
+             "more, kernel 2 one or more")
+    _check_recall("[14] (c)", out_c, comm)
+    log(f"[14] community phase {time.monotonic() - t_all:.1f}s")
+    return kern, launches_a, launches_c
+
+
 def main() -> int:
     try:
         import torch
@@ -1519,30 +1782,44 @@ def main() -> int:
               f"script ({e})", file=sys.stderr)
         return 2
     t0 = time.monotonic()
-    card = phase_card(torch)
-    phase_build()
-    data = phase_data()
-    kern = phase_kernels(torch, data)
-    sort_kern = phase_sortnet(torch)
-    phase_fixtures()
-    launches = phase_main_path(torch, data)
-    phase_cpu_match(data)
-    ladder = phase_ladder(torch, data)
-    phase_out_of_core(data)
-    phase_engines(torch)
-    stages = phase_stages(torch, data)
-    phase_mesh(torch, data)
+    spans = []
+
+    def timed(tag, fn, *args):
+        t = time.monotonic()
+        out = fn(*args)
+        spans.append(f"{tag} {time.monotonic() - t:.1f}s")
+        return out
+
+    card = timed("[1]", phase_card, torch)
+    timed("[2]", phase_build)
+    data = timed("[3]", phase_data)
+    kern = timed("[4] kernels 1, 2", phase_kernels, torch, data)
+    sort_kern = timed("[4] kernels 3, 4", phase_sortnet, torch)
+    timed("[5]", phase_fixtures)
+    launches = timed("[6]", phase_main_path, torch, data)
+    timed("[7]", phase_cpu_match, data)
+    ladder = timed("[8]", phase_ladder, torch, data)
+    timed("[11]", phase_out_of_core, data)
+    timed("[10]", phase_engines, torch)
+    stages = timed("[12]", phase_stages, torch, data)
+    timed("[13]", phase_mesh, torch, data)
+    torch.cuda.empty_cache()
+    comm_kern, comm_a, comm_c = timed("[14]", phase_community, torch)
     for kd in kern:
         kd["launches"] = launches[kd["name"]]
         kd["ladder_launches"] = ladder[kd["name"]]
         kd["stage_launches"] = stages[kd["name"]]
-    kern += sort_kern
+    for kd in comm_kern:
+        name = kd["name"].split("/")[0]
+        kd["launches"] = comm_a[name]
+        kd["ladder_launches"] = comm_c[name]
+    kern += sort_kern + comm_kern
     mods = sorted(m for m in sys.modules
                   if m == "jax" or m.startswith("jax.")
                   or m == "megahit_tpu" or m.startswith("megahit_tpu."))
     if mods:
         fail(f"JAX or the JAX package was imported: {mods[:5]}")
-    log(f"[9] total {time.monotonic() - t0:.1f}s")
+    log(f"[9] total {time.monotonic() - t0:.1f}s ({', '.join(spans)})")
     print(card)
     print(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {

@@ -205,10 +205,10 @@ def _chunks(pool, starts, k1, chunk):
             break
 
 
-def _count_chunked(pool, starts, k1, min_count, chunk, device):
-    """Chunked count on `device`: kernel 1 per chunk, compaction by
-    validity, sentinel padding to a power of two, sort, kernel 2.
-    Returns numpy (keys, counts, rare)."""
+def _chunked_sorted_words(pool, starts, k1, chunk, device):
+    """The chunked branch up to kernel 2: kernel 1 per chunk, compaction
+    by validity, sentinel padding to a power of two, sort. Returns
+    (sorted int64 u32 word columns, sentinel rows, chunks)."""
     w = kmerops.words_per_kmer(k1)
     n = num_windows(starts, k1)
     parts = []
@@ -216,17 +216,26 @@ def _count_chunked(pool, starts, k1, min_count, chunk, device):
         cols = kernels.canonical_all_kmers(_device_words(sub, device), k1)
         pm = torch.from_numpy(kernels.phase_grouped_mask(vm)).to(device)
         parts.append(cols[:, pm])
+    n_chunks = len(parts)
     keys = torch.cat(parts, dim=1)
     del parts
     assert keys.shape[1] == n, (keys.shape[1], n)
-    npad = _pow2_pad(n)
-    pad_rows = npad - n
+    pad_rows = _pow2_pad(n) - n
     words = [torch.cat([kmerops.u32_value(keys[i]),
                         keys.new_full((pad_rows,), kmerops.M32,
                                       dtype=torch.int64)])
              for i in range(w)]
     del keys
-    words = _sorted_words(words)
+    return _sorted_words(words), pad_rows, n_chunks
+
+
+def _count_chunked(pool, starts, k1, min_count, chunk, device):
+    """Chunked count on `device`: kernel 1 per chunk, compaction by
+    validity, sentinel padding to a power of two, sort, kernel 2.
+    Returns numpy (keys, counts, rare)."""
+    n = num_windows(starts, k1)
+    words, pad_rows, n_chunks = _chunked_sorted_words(
+        pool, starts, k1, chunk, device)
     head, counts = kernels.count_sorted_runs(
         [kmerops.i32_bits(c) for c in words], pad_rows)
     keep = head & (counts >= min_count)
@@ -243,9 +252,11 @@ def _count_chunked(pool, starts, k1, min_count, chunk, device):
     out_keys = kmerops.to_numpy(skeys[keep])
     out_counts = np.minimum(counts[keep].cpu().numpy(),
                             KMAX_MUL).astype(np.int32)
-    get_logger().debug(
-        "count: %d windows -> %d distinct canonical %d-mers, %d solid "
-        "(>=%d)", n, int(head.sum()), k1, len(out_keys), min_count)
+    get_logger().info(
+        "count (chunked): %d chunks of %d bases, %d windows padded to %d "
+        "rows -> %d distinct canonical %d-mers, %d solid (>=%d)",
+        n_chunks, chunk, n, n + pad_rows, int(head.sum()), k1,
+        len(out_keys), min_count)
     return out_keys, out_counts, kmerops.to_numpy(skeys[rare])
 
 

@@ -1,8 +1,9 @@
 """Native (C++) host-side cores, loaded via ctypes.
 
 Built on demand with g++ into the package's git-ignored ``_build/``
-directory; every native entry point has a pure-Python fallback so the
-package works without a toolchain.
+directory. A failed build raises ``NativeBuildError`` with the
+compiler's message: the pure-Python fallbacks behind the entry points
+turn minutes into hours at metagenome scale.
 """
 
 from __future__ import annotations
@@ -24,30 +25,34 @@ _lib = None
 _tried = False
 
 
+class NativeBuildError(RuntimeError):
+    """g++ could not build a native core; the message holds its output."""
+
+
 def _build_so(src: str, so: str, extra: tuple[str, ...] = (),
-              what: str = "") -> bool:
+              what: str = "") -> None:
     """Compile `src` -> `so` atomically (temp file + os.replace so a
-    concurrent process never CDLLs a half-written .so). Build failures
-    are surfaced at WARNING: the Python fallbacks are much slower on
-    the hot paths."""
+    concurrent process never CDLLs a half-written .so). Raises
+    NativeBuildError with the compiler's message on failure."""
     tmp = f"{so}.tmp.{os.getpid()}"
     os.makedirs(os.path.dirname(so), exist_ok=True)
+    cmd = ["g++", "-O3", "-shared", "-fPIC", *extra, src, "-o", tmp]
     try:
-        subprocess.run(
-            ["g++", "-O3", "-shared", "-fPIC", *extra, src, "-o", tmp],
-            check=True, capture_output=True, timeout=120,
-        )
-        os.replace(tmp, so)
-        return True
-    except Exception as e:  # toolchain missing: fall back to Python
-        get_logger().warning(
-            "native build of %s failed (%s); falling back to Python "
-            "paths that are much slower on large inputs", what or src, e)
+        res = subprocess.run(cmd, capture_output=True, text=True,
+                             timeout=120)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        raise NativeBuildError(
+            f"native build of {what or src}: {' '.join(cmd)} did not run: "
+            f"{e}") from e
+    if res.returncode != 0:
         try:
             os.unlink(tmp)
         except OSError:
             pass
-        return False
+        raise NativeBuildError(
+            f"native build of {what or src} failed (g++ exit "
+            f"{res.returncode}):\n{res.stderr.strip()}")
+    os.replace(tmp, so)
 
 
 def _needs_build(src: str, so: str) -> bool:
@@ -58,23 +63,29 @@ def _needs_build(src: str, so: str) -> bool:
 
 
 def native_status() -> dict[str, bool]:
-    """Availability of each native core (for checkcpu-style reports)."""
-    return {
-        "fastxpack": get_lib() is not None,
-        "graphwalk": get_graphwalk() is not None,
-        "seedscan": get_seedscan() is not None,
-    }
+    """Availability of each native core (for checkcpu-style reports); a
+    core whose build fails reports False and its error is logged."""
+    status = {}
+    for name, load in (("fastxpack", get_lib),
+                       ("graphwalk", get_graphwalk),
+                       ("seedscan", get_seedscan)):
+        try:
+            status[name] = load() is not None
+        except NativeBuildError as e:
+            get_logger().error("%s", e)
+            status[name] = False
+    return status
 
 
 def get_lib():
-    """The loaded native library, or None (Python fallback)."""
+    """The loaded native library, or None when it builds but does not
+    load (Python fallback); NativeBuildError when g++ fails."""
     global _lib, _tried
     if _lib is not None or _tried:
         return _lib
-    _tried = True
     if _needs_build(_SRC, _SO):
-        if not _build_so(_SRC, _SO, what="fastxpack"):
-            return None
+        _build_so(_SRC, _SO, what="fastxpack")
+    _tried = True
     try:
         lib = ctypes.CDLL(_SO)
         lib.fastx_parse.restype = ctypes.c_int64
@@ -177,14 +188,14 @@ _gw_tried = False
 
 
 def get_graphwalk():
-    """The loaded graphwalk library, or None (numpy fallback)."""
+    """The loaded graphwalk library, or None when it builds but does
+    not load (numpy fallback); NativeBuildError when g++ fails."""
     global _gw_lib, _gw_tried
     if _gw_lib is not None or _gw_tried:
         return _gw_lib
-    _gw_tried = True
     if _needs_build(_GW_SRC, _GW_SO):
-        if not _build_so(_GW_SRC, _GW_SO, what="graphwalk"):
-            return None
+        _build_so(_GW_SRC, _GW_SO, what="graphwalk")
+    _gw_tried = True
     try:
         lib = ctypes.CDLL(_GW_SO)
         i32p = ctypes.POINTER(ctypes.c_int32)
@@ -231,16 +242,15 @@ class _ScanResult(ctypes.Structure):
 
 
 def get_seedscan():
-    """The loaded seedscan library, or None (numpy fallback)."""
+    """The loaded seedscan library, or None when it builds but does
+    not load (numpy fallback); NativeBuildError when g++ fails."""
     global _ss_lib, _ss_tried
     if _ss_lib is not None or _ss_tried:
         return _ss_lib
-    _ss_tried = True
     if _needs_build(_SS_SRC, _SS_SO):
-        if not _build_so(_SS_SRC, _SS_SO,
-                         extra=("-std=c++17", "-pthread"),
-                         what="seedscan"):
-            return None
+        _build_so(_SS_SRC, _SS_SO, extra=("-std=c++17", "-pthread"),
+                  what="seedscan")
+    _ss_tried = True
     try:
         lib = ctypes.CDLL(_SS_SO)
         u32p = ctypes.POINTER(ctypes.c_uint32)
