@@ -10,9 +10,9 @@ Phases, each printing its own lines:
 2. build the CUDA kernels (one nvcc per source, in parallel) and the
    host C++ helpers from this checkout;
 3. a bacterial-isolate read set: Illumina-like paired FASTQ from
-   scripts/make_realistic.py (1 Mbp genome, 30x, seed 1; cached in
-   chip_smoke_data/; cut from 2 Mbp to keep the script, with [14],
-   inside its time limit);
+   scripts/make_realistic.py (0.25 Mbp genome, 30x, seed 1; cached in
+   chip_smoke_data/; cut from 2 Mbp to 1 Mbp for [14] and to 0.25 Mbp
+   for [15], to keep the script inside its time limit);
 4. kernel parity on the card, each kernel against its plain PyTorch
    version, exact equality: at the main path's shapes (the isolate's
    pool at k1=22), at k1 in {32, 42, 56}, and (kernel 2) the main
@@ -81,9 +81,9 @@ Phases, each printing its own lines:
    just after (each must be > 0) and both assemble stages cleaning on the
    device, and the same chain on cpu: every artifact equal (.npz array by
    array, the rest byte for byte); read2sdbg --need-mercy --memory
-   300000000 on cuda equal to count + seq2sdbg (valid keys and
-   multiplicities); the k=21 graph (~2M rows) through
-   save_sharded(rows_per_shard=2^20) (at least 2 shards), load_sharded
+   75000000 on cuda equal to count + seq2sdbg (valid keys and
+   multiplicities); the k=21 graph (~0.5M rows) through
+   save_sharded(rows_per_shard=2^18) (at least 2 shards), load_sharded
    and load_sharded_rows over two bucket ranges, equal; checkcpu and
    checknative each print 1; the link probe's milliseconds (it must keep
    the device engine); the fixtures
@@ -127,13 +127,36 @@ Phases, each printing its own lines:
    contigs are held to the genomes by 32-mer recall (each genome at 10x
    or more at 0.90 or more; the contig total at most 1.1 x the genome
    total).
+15. the same community under --presets meta-sensitive (min_count 1: the
+   1-pass out-of-core k=21 build, no mercy), cut to its first rungs
+   (--min-count 1 --k-list 21,29; phase_meta(torch, None) runs the whole
+   preset): (b) the CLI on cuda in a child process (its own peak host
+   memory), with the kernel counters read around it (0: the 1-pass route
+   reaches no kernel, as megahit_tpu's bucketed build reaches no Pallas
+   kernel), options.json equal to the preset's but for the k list, the
+   log's rows spilled, rounds (rows, seconds, sort seconds), no mercy
+   phase, every rung cleaned on the device, stages, assemble split, idle
+   share, peak device memory, and the contigs held to the genomes as in
+   [14] (c); (a) the k=21 graph that (b) kept (tmp/k21/k21.sdbg.npz)
+   against count_canonical_kmers(min_count=1) on cuda (the chunked
+   branch; kernel 1 3 or more launches, kernel 2 one or more, counters
+   set to 0 just before and read just after) + sdbg_from_edges: every
+   Sdbg array equal; and the rows spilled must be 2 x the count's
+   windows.
 9. (printed last) the script's total seconds and each phase's.
+
+Not in the main run, for their time (each a chip call of its own,
+README): phase_meta(torch, None), the whole preset; phase_cpu_ladders(),
+[14] (c)'s and [15] (b)'s runs again on cpu, byte-identical to their
+cuda runs (after _community_ladder and phase_meta in the same command);
+phase_diff(flags), which bisects a cuda/cpu difference by rung.
 
 It then prints the card line, one JSON line with every kernel's numbers
 (kernels 1, 2 with the launches of [6] and, as ladder_launches, of [8]
 and, as stage_launches, of [12]'s count stage; kernels 1, 2 again at the
-community's shapes, with the launches of [14] (a) and, as
-ladder_launches, of (c)), and as its last line
+community's shapes, with the launches of [14] (a), as
+ladder_launches, of (c) and, as meta_launches, of [15] (a)), and as its
+last line
 {"ok": true, "device": {...}}. Any failed phase
 exits non-zero without that line. Without a GPU it exits non-zero at
 once.
@@ -151,15 +174,15 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(HERE, "chip_smoke_data")
-GENOME_BP = 1_000_000
+GENOME_BP = 250_000
 COVERAGE = 30
 # H100 SXM memory rate (NVIDIA data sheet), bytes/s
 HBM_BYTES_PER_S = 3.35e12
 # batch of the chunked count check (the isolate's pool is 4 batches)
-CHUNK = 1 << 23
-# -m bytes of the 1-pass run in [11]: 8.3M rows a round at k1=22, so the
-# isolate's ~52M spilled rows take more than 4 rounds
-ONEPASS_MEMORY = 300_000_000
+CHUNK = 1 << 21
+# -m bytes of the 1-pass run in [11]: 2.1M rows a round at k1=22, so the
+# isolate's ~13M spilled rows take more than 4 rounds
+ONEPASS_MEMORY = 75_000_000
 # [14]: scripts/make_community.py --seed 42 at its defaults (RESULTS.md's
 # 20-genome community, 195 Mbp of reads)
 COMMUNITY_SEED = 42
@@ -168,6 +191,10 @@ COMMUNITY_SEED = 42
 COUNT_CHUNK = 1 << 26
 # [14] (c)'s limits, set before the first run on the card
 RECALL_MIN, RECALL_MIN_COV, TOTAL_MAX = 0.90, 10.0, 1.1
+# [15]: --presets meta-sensitive's first rungs (--min-count 1 --k-list
+# 21,29), so that the script stays inside its time limit; the whole
+# preset runs in a call of its own (phase_meta(torch, None), README)
+META_K_LIST = "21,29"
 
 
 def log(msg: str) -> None:
@@ -639,7 +666,7 @@ def _log_stages(tag: str, out: str) -> None:
         log(f"{tag}   stage {name}: {secs:.2f}s")
 
 
-def _device_profile(tag: str, prof, wall: float) -> None:
+def _device_profile(tag: str, prof, wall: float) -> float:
     ops = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in ops) / 1e6
     log(f"{tag} device busy {busy:.3f}s of {wall:.1f}s wall "
@@ -648,6 +675,7 @@ def _device_profile(tag: str, prof, wall: float) -> None:
     for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:6]:
         log(f"{tag}   device {e.self_device_time_total / 1e3:.2f} ms "
             f"x{e.count}: {e.key[:70]}")
+    return busy
 
 
 def _log_rungs(tag: str, out: str) -> list[str]:
@@ -1147,7 +1175,7 @@ def phase_stages(torch, data) -> dict:
     # the sharded graph files
     t0 = time.monotonic()
     shards = os.path.join(root, "shards")
-    a.save_sharded(shards, rows_per_shard=1 << 20)
+    a.save_sharded(shards, rows_per_shard=1 << 18)
     with open(os.path.join(shards, "sdbg_manifest.json")) as fh:
         n_shards = len(json.load(fh)["shards"])
     back = Sdbg.load_sharded(shards, device="cuda")
@@ -1163,7 +1191,7 @@ def phase_stages(torch, data) -> dict:
     if n_shards < 2 or not ok:
         fail(f"[12] sharded round trip: {n_shards} shards, equal {ok}")
     log(f"[12] k=21 graph ({e} rows) through save_sharded(rows_per_shard="
-        f"2^20): {n_shards} shards, load_sharded and load_sharded_rows over "
+        f"2^18): {n_shards} shards, load_sharded and load_sharded_rows over "
         f"buckets [0, 2^15) + [2^15, 2^16) equal "
         f"({time.monotonic() - t0:.2f}s)")
 
@@ -1667,23 +1695,29 @@ def _check_recall(tag: str, out: str, comm) -> None:
     stay at most TOTAL_MAX x the genome total."""
     import numpy as np
 
+    from megahit_tpu_torch.graph.output import contig_stats
+
     contigs = _fasta_codes(os.path.join(out, "final.contigs.fa"))
     table = np.unique(_canonical_32mers(contigs))
     total = sum(len(c) for c in contigs)
     genome_total = sum(g["bp"] for g in comm["genomes"])
-    low = []
+    low, recalls = [], []
     for g in comm["genomes"]:
         q = _canonical_32mers(_fasta_codes(os.path.join(
             comm["dir"], f"genome_{g['genome']}.fa")))
         i = np.minimum(np.searchsorted(table, q), len(table) - 1)
         rec = float((table[i] == q).mean()) if len(q) and len(table) else 0.0
+        recalls.append(rec)
         log(f"{tag}   genome {g['genome']:>2}: {g['bp']} bp, cov "
             f"{g['cov']:.2f}x{', mobile' if g['mobile'] else ''}: 32-mer "
             f"recall {rec:.4f}")
         if g["cov"] >= RECALL_MIN_COV and rec < RECALL_MIN:
             low.append((g["genome"], g["cov"], rec))
+    st = contig_stats(np.array([len(c) for c in contigs], np.int64))
     log(f"{tag} contigs: {len(contigs)}, total {total} bp (genome total "
-        f"{genome_total} bp, limit {TOTAL_MAX} x)")
+        f"{genome_total} bp, limit {TOTAL_MAX} x), N50 {st['n50']} bp; "
+        f"32-mer recall mean {np.mean(recalls):.4f}, worst "
+        f"{min(recalls):.4f}")
     if low:
         fail(f"{tag} genomes at {RECALL_MIN_COV}x or more below recall "
              f"{RECALL_MIN}: {low}")
@@ -1742,9 +1776,19 @@ def phase_community(torch) -> tuple[list[dict], dict, dict]:
     _log_stages("[14] (b)", out_b)
     _log_split("[14] (a) | (b)", out_a, out_b)
 
+    launches_c = _community_ladder(torch, comm)
+    log(f"[14] community phase {time.monotonic() - t_all:.1f}s")
+    return kern, launches_a, launches_c
+
+
+def _community_ladder(torch, comm) -> dict:
+    """[14] (c): the community with the default k list on cuda, every
+    rung cleaned on the device, held to the genomes by 32-mer recall.
+    Returns the kernel launches."""
     out_c = os.path.join(DATA, "community_ladder")
     torch.cuda.empty_cache()
-    wall, launches_c, peak, prof = _cuda_run(torch, reads + ["-o", out_c])
+    wall, launches_c, peak, prof = _cuda_run(
+        torch, ["-1", comm["r1"], "-2", comm["r2"], "-f", "-o", out_c])
     log(f"[14] (c) community, default k list on cuda: {wall:.1f}s wall, "
         f"launches {launches_c}, peak device memory {peak / 2**30:.2f} GiB")
     _log_rungs("[14] (c)", out_c)
@@ -1761,8 +1805,276 @@ def phase_community(torch) -> tuple[list[dict], dict, dict]:
         fail(f"[14] (c) kernel launches {launches_c}: kernel 1 needs 3 or "
              "more, kernel 2 one or more")
     _check_recall("[14] (c)", out_c, comm)
-    log(f"[14] community phase {time.monotonic() - t_all:.1f}s")
-    return kern, launches_a, launches_c
+    return launches_c
+
+
+
+META_CHILD = r"""
+import json, resource, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import chip_smoke as c
+wall, launches, peak, prof = c._cuda_run(torch, json.loads(sys.argv[2]))
+busy = c._device_profile(sys.argv[3], prof, wall)
+print(json.dumps({"wall": wall, "launches": launches, "peak": peak,
+                  "busy": busy, "maxrss": resource.getrusage(
+                      resource.RUSAGE_SELF).ru_maxrss * 1024}))
+"""
+
+
+def _meta_flags(k_list) -> list[str]:
+    """[15]'s run: the preset's own flags, or with a k list its first
+    rungs (min_count 1 sets the 1-pass build and no mercy, as the preset
+    does)."""
+    if k_list is None:
+        return ["--presets", "meta-sensitive"]
+    return ["--min-count", "1", "--k-list", k_list]
+
+
+def _meta_cli(torch, comm, k_list) -> tuple[str, dict]:
+    """[15] (b): the CLI under the preset on cuda in a child process (so
+    its ru_maxrss is its own, not [14]'s), with the kernel counters set
+    to 0 just before and read just after; options.json must be the
+    preset's but for the k list, and the log must show the 1-pass build,
+    no mercy and the device engine at every rung. Returns the output
+    directory and the child's numbers."""
+    from dataclasses import asdict
+
+    from megahit_tpu_torch.__main__ import make_parser, options_from_args
+
+    out = os.path.join(DATA, "community_meta")
+    base = ["-1", comm["r1"], "-2", comm["r2"], "-f", "--keep-tmp-files",
+            "-o", out]
+    res = subprocess.run(
+        [sys.executable, "-c", META_CHILD, HERE,
+         json.dumps(base + _meta_flags(k_list)), "[15] (b)"],
+        stdout=subprocess.PIPE, text=True, timeout=3300, cwd=HERE)
+    lines = res.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        log(line)
+    if res.returncode != 0:
+        fail(f"[15] (b) the CLI child exited {res.returncode}")
+    child = json.loads(lines[-1])
+    log(f"[15] (b) community {' '.join(_meta_flags(k_list))} on cuda "
+        f"(child process): {child['wall']:.1f}s wall, launches "
+        f"{child['launches']} (the 1-pass route reaches no kernel, as "
+        f"megahit_tpu's bucketed build reaches no Pallas kernel), peak "
+        f"device memory {child['peak'] / 2**30:.2f} GiB, peak host memory "
+        f"(ru_maxrss) {child['maxrss'] / 2**30:.2f} GiB")
+
+    want = options_from_args(make_parser().parse_args(
+        base + ["--presets", "meta-sensitive", "--device", "cuda"]))
+    want.validate()
+    with open(os.path.join(out, "options.json")) as fh:
+        got = json.load(fh)
+    differ = sorted(k for k, v in asdict(want).items() if got.get(k) != v)
+    # validate() derives k_max from the k list
+    if not set(differ) <= ({"k_list", "auto_k", "k_max"} if k_list else
+                           set()):
+        fail(f"[15] (b) options.json differs from the preset's in {differ}")
+    log(f"[15] (b) options.json equal to --presets meta-sensitive's but "
+        f"for {differ or 'nothing'}")
+
+    with open(os.path.join(out, "log")) as fh:
+        text = fh.read()
+    spill = re.search(r"bucketed build k=22: (\d+) rows spilled in "
+                      r"([0-9.]+)s, (\d+) rounds \(budget (\d+)\)", text)
+    rounds = re.findall(r"bucketed round \d+/\d+ .*: (\d+) rows, (\d+) "
+                        r"edges, ([0-9.]+)s \(sort ([0-9.]+)s\)", text)
+    built = re.search(r"k=21 \(1-pass\): (\d+) edges, (\d+) rounds \(max "
+                      r"(\d+) rows\)", text)
+    if not spill or not built:
+        fail("[15] (b) the k=21 graph was not built by the 1-pass route")
+    if "first_graph.mercy" in text:
+        fail("[15] (b) a mercy phase ran under min_count 1")
+    log(f"[15] (b) 1-pass k=21 build: {spill.group(1)} rows spilled in "
+        f"{spill.group(2)}s, {spill.group(3)} rounds (budget "
+        f"{spill.group(4)} rows; largest {built.group(3)} rows), "
+        f"{built.group(1)} edges; rounds: " + ", ".join(
+            f"{r} rows {t}s (sort {u}s)" for r, _, t, u in rounds)
+        + "; no mercy phase")
+    _log_rungs("[15] (b)", out)
+    _log_stages("[15] (b)", out)
+    split = _assemble_split(out)
+    log("[15] (b) assemble split summed over rungs: " + ", ".join(
+        f"{name} {split.get(name, 0.0):.2f}s" for name in (
+            "sdbg_tips", "unitig_build", "cleaning_rounds", "prune_output")))
+    _check_cleaning("[15] (b)", out)
+    _check_recall("[15] (b)", out, comm)
+    child["spilled"] = int(spill.group(1))
+    return out, child
+
+
+def _meta_graph(torch, comm, out) -> dict:
+    """[15] (a): the 1-pass k=21 graph that (b) kept (nav-form
+    tmp/k21/k21.sdbg.npz) against the count route on cuda at min_count
+    1 (the chunked branch: kernel 1 a chunk, one torch.sort, kernel 2)
+    and sdbg_from_edges: every Sdbg array equal. The kernel counters are
+    set to 0 just before the count and read just after. Returns the
+    launches and the count's windows."""
+    import numpy as np
+
+    from megahit_tpu_torch.core import kernels
+    from megahit_tpu_torch.graph.counter import count_canonical_kmers
+    from megahit_tpu_torch.graph.sdbg import Sdbg, sdbg_from_edges
+    from megahit_tpu_torch.io.lib import build_lib
+    from megahit_tpu_torch.utils.log import get_logger, setup_logging
+
+    lib = build_lib([comm["r1"]], [comm["r2"]], [], [])
+    setup_logging()  # console only
+    msgs = _Messages()
+    get_logger().addHandler(msgs)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        kernels.canonical_all_kmers.launches = 0
+        kernels.count_sorted_runs.launches = 0
+        keys, counts = count_canonical_kmers(
+            lib.pool, lib.starts, 22, 1, batch_windows=COUNT_CHUNK,
+            device="cuda")
+        torch.cuda.synchronize()
+        launches = {
+            "canonical_all_kmers": kernels.canonical_all_kmers.launches,
+            "count_sorted_runs": kernels.count_sorted_runs.launches}
+        t_count = time.monotonic() - t0
+    finally:
+        get_logger().removeHandler(msgs)
+    m = next((re.search(r"count \(chunked\): (\d+) chunks of \d+ bases, "
+                        r"(\d+) windows padded to (\d+) rows", x)
+              for x in msgs.messages if x.startswith("count (chunked)")),
+             None)
+    if not m:
+        fail("[15] (a) the count did not take the chunked branch")
+    t0 = time.monotonic()
+    want = sdbg_from_edges(keys, counts, 22, device="cuda")
+    t_edges = time.monotonic() - t0
+    got = Sdbg.load(os.path.join(out, "tmp", "k21", "k21.sdbg.npz"),
+                    device="cuda")
+    if (got.k, got.real, got.size) != (want.k, want.real, want.size):
+        fail(f"[15] (a) 1-pass graph (k, real, size) "
+             f"{(got.k, got.real, got.size)} != count route's "
+             f"{(want.k, want.real, want.size)}")
+    for name in ("keys", "mult", "valid", "run_start", "nxt_link", "rc"):
+        if not np.array_equal(np.asarray(getattr(got, name)),
+                              np.asarray(getattr(want, name))):
+            fail(f"[15] (a) Sdbg.{name} differs between the 1-pass graph "
+                 "and the count route's")
+    log(f"[15] (a) 1-pass k=21 graph equal to count_canonical_kmers("
+        f"min_count=1, cuda) + sdbg_from_edges in every Sdbg array (keys, "
+        f"mult, valid, run_start, nxt_link, rc): {got.real} edges, "
+        f"{len(keys)} canonical keys, capacity {got.size}; count "
+        f"{t_count:.1f}s ({m.group(1)} chunks, {m.group(2)} windows padded "
+        f"to {m.group(3)} rows; launches {launches}), sdbg_from_edges "
+        f"{t_edges:.1f}s")
+    if launches["canonical_all_kmers"] < 3 \
+            or launches["count_sorted_runs"] < 1:
+        fail(f"[15] (a) kernel launches {launches}: kernel 1 needs 3 or "
+             "more, kernel 2 one or more")
+    return {"launches": launches, "windows": int(m.group(2))}
+
+
+def phase_meta(torch, k_list=META_K_LIST) -> dict:
+    """[15] the community under --presets meta-sensitive (k_list=None:
+    all its rungs; else --min-count 1 with that k list): (b) the CLI on
+    cuda, then (a) its kept k=21 graph against the count route. The
+    1-pass build must spill two rows (both strands) for every window the
+    count sees. Returns (a)'s kernel launches."""
+    t_all = time.monotonic()
+    comm = phase_community_data()
+    torch.cuda.empty_cache()
+    out, child = _meta_cli(torch, comm, k_list)
+    graph = _meta_graph(torch, comm, out)
+    torch.cuda.empty_cache()
+    if child["spilled"] != 2 * graph["windows"]:
+        fail(f"[15] the 1-pass build spilled {child['spilled']} rows, not "
+             f"2 x the count's {graph['windows']} windows")
+    log(f"[15] rows spilled {child['spilled']} = 2 x the count's "
+        f"{graph['windows']} windows; meta phase "
+        f"{time.monotonic() - t_all:.1f}s")
+    return graph["launches"]
+
+
+def phase_cpu_ladders(k_list=META_K_LIST) -> None:
+    """The community's default ladder ([14] (c)) and [15] (b)'s run again
+    on cpu: each final.contigs.fa must be byte-identical to its cuda
+    run's. Needs both cuda runs' outputs from the same command; kept out
+    of main() for its time (README)."""
+    comm = phase_community_data()
+    for tag, name, flags in (
+            ("default k list", "community_ladder", []),
+            (" ".join(_meta_flags(k_list)), "community_meta",
+             _meta_flags(k_list))):
+        out = os.path.join(DATA, name + "_cpu")
+        t0 = time.monotonic()
+        _run_cli(["-1", comm["r1"], "-2", comm["r2"], "--device", "cpu",
+                  "-f", "-o", out] + flags)
+        wall = time.monotonic() - t0
+        with open(os.path.join(DATA, name, "final.contigs.fa"), "rb") as f:
+            a = f.read()
+        with open(os.path.join(out, "final.contigs.fa"), "rb") as f:
+            b = f.read()
+        if a != b or not a:
+            fail(f"community {tag}: final.contigs.fa differs between cpu "
+                 "and cuda")
+        log(f"[cpu] community {tag} on cpu: {wall:.1f}s wall, "
+            f"final.contigs.fa byte-identical to the cuda run's "
+            f"({a.count(b'>')} contigs)")
+        _log_rungs(f"[cpu] {name}", out)
+        _log_stages(f"[cpu] {name}", out)
+        _log_split(f"[cpu] {name}", os.path.join(DATA, name), out)
+
+
+
+def phase_diff(flags=()) -> list[str]:
+    """Bisects a cuda/cpu difference by rung: the community with `flags`
+    on both devices, every intermediate kept, then each intermediate
+    contig file (byte for byte, with its first differing line) and each
+    rung's edge file (array by array) compared in rung order. Prints and
+    returns the names that differ. Not in main() (README)."""
+    import numpy as np
+
+    comm = phase_community_data()
+    outs = {dev: os.path.join(DATA, f"diff_{dev}") for dev in ("cuda", "cpu")}
+    for dev, out in outs.items():
+        _run_cli(["-1", comm["r1"], "-2", comm["r2"], "--device", dev, "-f",
+                  "--keep-tmp-files", "-o", out] + list(flags))
+
+    def rung(name):
+        m = re.search(r"k(\d+)", os.path.basename(name))
+        return (int(m.group(1)) if m else 1 << 30, name)
+
+    names = sorted((os.path.relpath(os.path.join(d, f), outs["cuda"])
+                    for d, _, fs in os.walk(outs["cuda"]) for f in fs
+                    if f.endswith((".fa", ".npz"))), key=rung)
+    differ = []
+    for name in names:
+        a, b = (os.path.join(outs[dev], name) for dev in ("cuda", "cpu"))
+        if not os.path.exists(b):
+            same, detail = False, "absent on cpu"
+        elif name.endswith(".npz"):
+            za, zb = np.load(a), np.load(b)
+            bad = [f for f in za.files if f not in zb.files
+                   or za[f].dtype != zb[f].dtype
+                   or not np.array_equal(za[f], zb[f])]
+            same, detail = not bad, f"arrays {bad}"
+        else:
+            with open(a) as fa, open(b) as fb:
+                la, lb = fa.read().splitlines(), fb.read().splitlines()
+            i = next((i for i, (x, y) in enumerate(zip(la, lb)) if x != y),
+                     min(len(la), len(lb)))
+            same = la == lb
+            detail = (f"{sum(x.startswith('>') for x in la)} | "
+                      f"{sum(x.startswith('>') for x in lb)} records; "
+                      f"first difference at line {i + 1}: "
+                      f"{la[i][:60] if i < len(la) else '-'} | "
+                      f"{lb[i][:60] if i < len(lb) else '-'}")
+        if not same:
+            differ.append(name)
+            log(f"[diff] {name} differs, cuda | cpu: {detail}")
+    log(f"[diff] community {' '.join(flags) or 'default k list'}: "
+        f"{len(differ)} of {len(names)} intermediate files differ between "
+        "cuda and cpu")
+    return differ
 
 
 def main() -> int:
@@ -1805,6 +2117,8 @@ def main() -> int:
     timed("[13]", phase_mesh, torch, data)
     torch.cuda.empty_cache()
     comm_kern, comm_a, comm_c = timed("[14]", phase_community, torch)
+    torch.cuda.empty_cache()
+    meta = timed("[15]", phase_meta, torch)
     for kd in kern:
         kd["launches"] = launches[kd["name"]]
         kd["ladder_launches"] = ladder[kd["name"]]
@@ -1813,6 +2127,7 @@ def main() -> int:
         name = kd["name"].split("/")[0]
         kd["launches"] = comm_a[name]
         kd["ladder_launches"] = comm_c[name]
+        kd["meta_launches"] = meta[name]
     kern += sort_kern + comm_kern
     mods = sorted(m for m in sys.modules
                   if m == "jax" or m.startswith("jax.")

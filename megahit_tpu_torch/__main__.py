@@ -193,6 +193,48 @@ def make_test_data(out_dir: str) -> dict[str, list[str]]:
     }
 
 
+def options_from_args(args) -> "Options":
+    """The run's Options from parsed CLI arguments, before validation:
+    the flags, then --k-list, then a preset, which overrides an explicit
+    --k-list."""
+    from megahit_tpu_torch.pipeline.options import Options
+
+    opt = Options(
+        pe1=_split(args.pe1), pe2=_split(args.pe2),
+        pe12=_split(args.pe12), se=_split(args.se),
+        out_dir=args.out_dir, out_prefix=args.out_prefix,
+        min_contig_len=args.min_contig_len,
+        min_count=args.min_count,
+        no_mercy=args.no_mercy, no_local=args.no_local,
+        kmin_1pass=args.kmin_1pass,
+        prune_level=args.prune_level, prune_depth=args.prune_depth,
+        bubble_level=args.bubble_level,
+        disconnect_ratio=args.disconnect_ratio,
+        low_local_ratio=args.low_local_ratio,
+        cleaning_rounds=args.cleaning_rounds,
+        max_tip_len=args.max_tip_len,
+        keep_tmp_files=args.keep_tmp_files,
+        temp_dir=args.tmp_dir, mem_flag=args.mem_flag,
+        test_mode=args.test_mode,
+        continue_mode=args.continue_mode,
+        verbose=args.verbose,
+        k_min=args.k_min, k_max=args.k_max, k_step=args.k_step,
+        memory=args.memory, num_cpu_threads=args.num_cpu_threads,
+        device=args.device, use_mesh=args.use_mesh,
+    )
+    if args.k_list:
+        opt.k_list = [int(x) for x in args.k_list.split(",")]
+        opt.auto_k = False
+    if args.presets:
+        # the reference applies presets in check_and_correct_option,
+        # AFTER parsing: a preset overrides an explicit --k-list and
+        # re-enables auto_k read-length pruning (src/megahit:491-505)
+        opt.apply_preset(args.presets)
+    ml = args.merge_level.split(",")
+    opt.merge_len, opt.merge_similar = int(ml[0]), float(ml[1])
+    return opt
+
+
 def main(argv=None) -> int:
     args = make_parser().parse_args(argv)
     if args.show_version:
@@ -244,39 +286,7 @@ def main(argv=None) -> int:
 
         shutil.rmtree(args.out_dir)
 
-    opt = Options(
-        pe1=_split(args.pe1), pe2=_split(args.pe2),
-        pe12=_split(args.pe12), se=_split(args.se),
-        out_dir=args.out_dir, out_prefix=args.out_prefix,
-        min_contig_len=args.min_contig_len,
-        min_count=args.min_count,
-        no_mercy=args.no_mercy, no_local=args.no_local,
-        kmin_1pass=args.kmin_1pass,
-        prune_level=args.prune_level, prune_depth=args.prune_depth,
-        bubble_level=args.bubble_level,
-        disconnect_ratio=args.disconnect_ratio,
-        low_local_ratio=args.low_local_ratio,
-        cleaning_rounds=args.cleaning_rounds,
-        max_tip_len=args.max_tip_len,
-        keep_tmp_files=args.keep_tmp_files,
-        temp_dir=args.tmp_dir, mem_flag=args.mem_flag,
-        test_mode=args.test_mode,
-        continue_mode=args.continue_mode,
-        verbose=args.verbose,
-        k_min=args.k_min, k_max=args.k_max, k_step=args.k_step,
-        memory=args.memory, num_cpu_threads=args.num_cpu_threads,
-        device=args.device, use_mesh=args.use_mesh,
-    )
-    if args.k_list:
-        opt.k_list = [int(x) for x in args.k_list.split(",")]
-        opt.auto_k = False
-    if args.presets:
-        # the reference applies presets in check_and_correct_option,
-        # AFTER parsing: a preset overrides an explicit --k-list and
-        # re-enables auto_k read-length pruning (src/megahit:491-505)
-        opt.apply_preset(args.presets)
-    ml = args.merge_level.split(",")
-    opt.merge_len, opt.merge_similar = int(ml[0]), float(ml[1])
+    opt = options_from_args(args)
 
     saved = os.path.join(args.out_dir, "options.json")
     if args.continue_mode and os.path.exists(saved):

@@ -22,9 +22,15 @@ by pass, and against both packages' assemble()):
   slot anchored at that member's adjusted begin edge.
 - tie-breaks in the mark passes use the same canonical EDGE ids
   (min(ref_rank[start], ref_rank[rc_start])) as the host passes.
-- depths are compared in float32, as megahit_tpu's device engine does:
-  the scalars arrive as 0-d float32/int32 tensors and the 4-candidate
-  sums are explicit left-to-right adds, on the row's owner.
+- depths are computed and compared in float64, as the host engine
+  (and MEGAHIT) does: the scalars arrive as 0-d float64/int32 tensors
+  and the 4-candidate sums are explicit left-to-right adds, on the
+  row's owner. megahit_tpu's device engine keeps them in float32 (the
+  TPU has no fast float64); at exact ties, such as a careful bubble's
+  depth at exactly 0.2 times the kept branch's, float32 and float64
+  decide differently, and the bubble records' depths round
+  differently, so a float32 engine on the card would not give the
+  CPU's contigs.
 
 Every pass is written over row blocks (parallel/rows.py): each E-sized
 and Vc-sized tensor is a ``Blocks``, a read of another row is a
@@ -82,7 +88,7 @@ from .unitig import UnitigGraph, _list_rank_rows
 
 I32 = torch.int32
 I64 = torch.int64
-F32 = torch.float32
+F64 = torch.float64
 NULL = -1
 
 
@@ -373,7 +379,7 @@ def _refresh(rows: Rows, st: DevStatic, s: DevState, to_delete, to_dfwd,
 
 
 def _avg_depth(s: DevState):
-    return _finite("average depth", s.depth.to(F32) / s.length.clamp(min=1))
+    return _finite("average depth", s.depth.to(F64) / s.length.clamp(min=1))
 
 
 def _tips_marks(rows, st, s, end0, end1, thre):
@@ -429,7 +435,7 @@ def _weak_marks(rows, st, s, end0, end1, local_ratio, vc: int):
 def _lld_marks(rows, st, s, end0, end1, min_depth, max_len, local_width,
                local_ratio):
     """cleaning.remove_local_low_depth marks + is_changed."""
-    depth = s.depth.to(F32)
+    depth = s.depth.to(F64)
     nbr, _, present = _nbr_tables(rows, st, s, end0, end1)
     outdeg = present.sum(-1)
     ind, outd = outdeg[:, 1], outdeg[:, 0]
@@ -560,7 +566,7 @@ def _instances(rows, st, s, shape, avg, vc: int) -> np.ndarray:
     scan order (left slot asc, strand asc; shard blocks concatenate in
     row order). Columns: the four sorted middles' slots, strands and
     presence, then for the six vertices (middles, left, right) their
-    length, start edge, flip (build orientation) and avg depth (float32
+    length, start edge, flip (build orientation) and avg depth (float64
     bits). Only instance rows cross to the host."""
     lv, sv = R.bmap(lambda ok: torch.nonzero(ok, as_tuple=True),
                     shape["ok"])
@@ -580,7 +586,7 @@ def _instances(rows, st, s, shape, avg, vc: int) -> np.ndarray:
     length, start, flip, avg = rows.take([s.length, s.start, flip, avg],
                                          verts.clamp(min=0))
     cols = [verts, at(shape["mstr"]), at(shape["pres"]), length, start,
-            flip, avg.view(I32)]
+            flip, avg.view(I64)]
     return rows.fetch(R.bmap(
         lambda *c: torch.cat([x.to(I64) for x in c], 1), *cols))
 
@@ -626,8 +632,8 @@ class DeviceCleaner:
 
     # -- helpers ----------------------------------------------------
 
-    def _f32(self, x) -> R.Blocks:
-        return self.rows.const(x, F32)
+    def _f64(self, x) -> R.Blocks:
+        return self.rows.const(x, F64)
 
     def _i32(self, x) -> R.Blocks:
         return self.rows.const(x, I32)
@@ -670,7 +676,7 @@ class DeviceCleaner:
         st, s = self.static, self.state
         end0, end1 = self._ends(st, s)
         dfwd, drc, n = _weak_marks(self.rows, st, s, end0, end1,
-                                   self._f32(local_ratio), self.vc)
+                                   self._f64(local_ratio), self.vc)
         (n,) = self.rows.total(n)
         if n:
             self._refresh(st, s, self._zeros_v(), dfwd, drc,
@@ -683,9 +689,9 @@ class DeviceCleaner:
         st, s = self.static, self.state
         end0, end1 = self._ends(st, s)
         remove, n, is_changed = _lld_marks(
-            self.rows, st, s, end0, end1, self._f32(min_depth),
+            self.rows, st, s, end0, end1, self._f64(min_depth),
             self._i32(max_len), self._i32(local_width),
-            self._f32(local_ratio))
+            self._f64(local_ratio))
         n, is_changed = self.rows.total(n, is_changed)
         if n:
             self._refresh(st, s, remove, self._zeros_v(), self._zeros_v(),
@@ -714,7 +720,7 @@ class DeviceCleaner:
 
     def remove_low_depth(self, min_depth: float) -> int:
         st, s = self.static, self.state
-        remove, n = _low_depth_marks(s, self._f32(min_depth))
+        remove, n = _low_depth_marks(s, self._f64(min_depth))
         (n,) = self.rows.total(n)
         # the host path always refreshes here (set_changed=False), but
         # a refresh with no marks is the identity
@@ -789,10 +795,10 @@ class DeviceCleaner:
                 verts[known].tolist(), inst[:, 14:20][known].tolist(),
                 inst[:, 20:26][known].tolist(),
                 inst[:, 26:32][known].astype(bool).tolist(),
-                inst[:, 32:38].astype(np.int32).view(np.float32)[known]):
+                inst[:, 32:38].view(np.float64)[known]):
             vinfo[v] = (ln, se, fl, av)
         clen = inst[:, 14:18] + (self.k - 1)
-        avg = inst[:, 32:36].astype(np.int32).view(np.float32)
+        avg = inst[:, 32:36].view(np.float64)
         nxt = None  # downloaded at a pass's first string fetch
         codes_of: dict[int, np.ndarray] = {}
 

@@ -19,8 +19,8 @@ shard is read or written only through the two exchanges of ``Rows``:
   masked write to a pad row does in a whole-tensor pass.
 
 Values travel as int64 columns: integers and bools by value, float32 as
-its int32 bit pattern, so an exchange is exact and gloo (which has no
-uint32 or bool) carries it. Every shard calls every exchange, with an
+its int32 bit pattern and float64 as its int64 one, so an exchange is
+exact and gloo (which has no uint32 or bool) carries it. Every shard calls every exchange, with an
 empty send when it has nothing to send.
 
 With no mesh the layout is one block holding every row: ``take`` is
@@ -39,7 +39,8 @@ from .multihost import fetch_global
 
 I32 = torch.int32
 I64 = torch.int64
-F32 = torch.float32
+# floats travel as the integers of their bit patterns
+_BITS = {torch.float32: I32, torch.float64: I64}
 
 
 def _at(x, i):
@@ -147,8 +148,8 @@ def _pack(cols, n: int) -> torch.Tensor:
     """(n, sum of widths) int64 from columns with n leading rows."""
     out = []
     for c in cols:
-        if c.dtype == F32:
-            c = c.view(I32)
+        if c.dtype in _BITS:
+            c = c.view(_BITS[c.dtype])
         w = int(np.prod(c.shape[1:], dtype=np.int64))
         out.append(c.reshape(n, w).to(I64))
     return out[0] if len(out) == 1 else torch.cat(out, 1)
@@ -163,7 +164,10 @@ def _unpack(p: torch.Tensor, like) -> list[torch.Tensor]:
         w = int(np.prod(tail, dtype=np.int64))
         c = p[:, o: o + w]
         o += w
-        c = c.to(I32).view(F32) if t.dtype == F32 else c.to(t.dtype)
+        if t.dtype in _BITS:
+            c = c.to(_BITS[t.dtype]).view(t.dtype)
+        else:
+            c = c.to(t.dtype)
         out.append(c.reshape((p.shape[0],) + tail))
     return out
 

@@ -6,7 +6,7 @@ classes are numeric (non-finite values in depth/similarity math) and
 STRUCTURAL (a graph whose derived navigation drifts from its keys).
 `MEGAHIT_TPU_TORCH_DEBUG=1` enables:
 
-- a finiteness assertion on the float32 tensors the device cleaning
+- a finiteness assertion on the float tensors the device cleaning
   engine computes (`enable_debug_checks`, armed by the CLI);
 - full graph invariant checks after every SdBG construction (the
   default build only spot-checks 1K rows of an injected rc): rc
@@ -38,7 +38,7 @@ def enable_debug_checks() -> None:
     this package happens only in the device cleaning engine (average
     depths, local depth means and ratios, weak-link depth sums; the
     bubble similarity is integer edit distance on the host), so that
-    engine passes each float32 tensor it computes through
+    engine passes each float tensor it computes through
     `check_finite`, which raises on a NaN or an infinity once armed."""
     global _finite_armed
     _finite_armed = True

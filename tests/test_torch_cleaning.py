@@ -6,10 +6,13 @@ The engine normally runs only for a graph on the card; here
 same seeded reads go through megahit_tpu's count and graph build; the
 port starts from that graph (megahit_tpu_torch.convert). Pass by pass,
 the port's DeviceCleaner must equal megahit_tpu's DeviceCleaner on the
-JAX CPU backend: each pass's count, its bubble records and every
-UnitigGraph array of to_host(). Whole assemble() runs (the five cases
-of tests/test_device_cleaning.py) must give megahit_tpu's records, with
-its device engine forced on, and the port's host engine's."""
+JAX CPU backend: each pass's count, its bubble records (their depths
+at megahit_tpu's float32; the port keeps depths in float64, as the host
+engines do) and every UnitigGraph array of to_host(). Whole assemble()
+runs (the five cases of tests/test_device_cleaning.py) must give
+megahit_tpu's records, with its device engine forced on, and the port's
+host engine's. A careful bubble whose depths tie at float32 must give
+the host engine's records exactly."""
 
 import logging
 
@@ -24,8 +27,13 @@ from megahit_tpu.graph import unitig as ju
 from megahit_tpu.graph.counter import count_canonical_kmers
 from megahit_tpu.pipeline import assemble as jasm
 from megahit_tpu_torch import convert
+from megahit_tpu_torch.core import packing as tpk
 from megahit_tpu_torch.graph import assemble_device as tad
+from megahit_tpu_torch.graph import cleaning as tcl
 from megahit_tpu_torch.graph import unitig as tu
+from megahit_tpu_torch.graph.counter import \
+    count_canonical_kmers as tcount
+from megahit_tpu_torch.graph.sdbg import sdbg_from_edges
 from megahit_tpu_torch.pipeline import assemble as tasm
 
 from cleaning_cases import CASES, CLEAN, engine_steps, records
@@ -89,9 +97,73 @@ def test_passes_match_jax_device_cleaner(case):
         n_j, n_t = jstep(), tstep()
         assert n_t == n_j, step
         removed += n_j[0] if isinstance(n_j, tuple) else n_j
-        assert trec == jrec, step
+        assert _at_float32(trec) == _at_float32(jrec), step
         _assert_graphs_equal(teng.to_host(), jeng.to_host(), step)
     assert removed > 0 or name in CLEAN
+
+
+def _at_float32(recs):
+    """Bubble records with their depths rounded to float32, the
+    precision of megahit_tpu's device engine."""
+    return [(seq, np.float32(depth)) for seq, depth in recs]
+
+
+def _snp_bubble(a_counts, c_counts):
+    """A graph of one SNP bubble at k1 = 22: 60-base flanks at
+    multiplicity 50, the 22 edges of allele A at `a_counts` and those
+    of allele C at `c_counts`."""
+    rng = np.random.default_rng(3)
+    left = rng.integers(0, 4, 60).astype(np.uint8)
+    right = rng.integers(0, 4, 60).astype(np.uint8)
+    seqs = [np.concatenate([left, [b], right]).astype(np.uint8)
+            for b in (0, 1)]
+
+    def edges(seq_list):
+        flat, starts = tpk.pack_many(seq_list)
+        keys, _ = tcount(flat, starts, 22, 1, device="cpu")
+        return keys
+
+    keys = edges(seqs)
+    row = np.dtype((np.void, 4 * keys.shape[1]))
+    void = np.ascontiguousarray(keys).view(row).ravel()
+    in_a = np.isin(void, np.ascontiguousarray(edges(seqs[:1])).view(
+        row).ravel())
+    in_c = np.isin(void, np.ascontiguousarray(edges(seqs[1:])).view(
+        row).ravel())
+    counts = np.full(len(keys), 50, np.int32)
+    for only, branch in ((in_a & ~in_c, a_counts), (in_c & ~in_a,
+                                                     c_counts)):
+        assert only.sum() == len(branch) == 22
+        counts[only] = branch
+    return keys, counts
+
+
+@pytest.mark.parametrize("branch", ["tie_at_float32", "inexact_depth"])
+def test_careful_bubble_records_match_host_engine(branch):
+    """Allele C at depth 23/22 against allele A at 115/22: in float32
+    the careful test ties (1.0454545 >= 0.2 x 5.2272725 = 1.0454545), in
+    float64 it fails (1.0454545454545454 < 1.0454545454545456), so the
+    host engine records nothing. At depths 30 and 133/22 both record
+    C, and its depth must be the host engine's float64 value."""
+    if branch == "tie_at_float32":
+        keys, counts = _snp_bubble([10] + [5] * 21, [2] + [1] * 21)
+    else:
+        keys, counts = _snp_bubble([30] * 22, [7] + [6] * 21)
+    recs = []
+    for run in ("host", "device"):
+        g = tu.build_unitig_graph(sdbg_from_edges(keys, counts, 22,
+                                                  device="cpu"))
+        rec = []
+        if run == "host":
+            g, n = tcl.pop_bubbles(g, 23, True, careful_threshold=0.2,
+                                   bubble_records=rec)
+        else:
+            n = tad.DeviceCleaner(g).pop_bubbles(
+                23, True, careful_threshold=0.2, bubble_records=rec)
+        assert n == 1
+        recs.append(rec)
+    assert recs[1] == recs[0]
+    assert len(recs[0]) == (0 if branch == "tie_at_float32" else 3)
 
 
 def _port_assemble(factory, opt, caplog):

@@ -8,7 +8,8 @@ final.contigs.fa must be byte-identical (exact: no tolerance) in three
 routes: the count's chunked branch (k1 = 42 > 32 on the CPU, with kernel
 1's plain version over 2 chunks under -m 100000000), the default preset
 (host u64 count, mercy, ladder, local assembly), and the 1-pass route of
---presets meta-sensitive."""
+--presets meta-sensitive (its own 13 rungs, pruned only by the read
+length)."""
 
 import pathlib
 import subprocess
@@ -26,7 +27,9 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 CASES = {
     "chunked": ["--k-list", "41,61", "-m", "100000000"],
     "default": ["--k-list", "21,41"],
-    "meta_sensitive": ["--presets", "meta-sensitive", "--k-list", "21,41"],
+    # the preset overrides an explicit --k-list (as MEGAHIT's does): it
+    # runs its own 13 rungs, which the log must show
+    "meta_sensitive": ["--presets", "meta-sensitive"],
 }
 
 
@@ -55,3 +58,5 @@ def test_community_byte_identical(case, community, tmp_path):
         assert "count (chunked): 2 chunks of " in log
     if case == "meta_sensitive":
         assert "bucketed build k=22" in log
+        assert ("k list: 21,29,39,49,59,69,79,89,99,109,119,129,141\n"
+                in log)

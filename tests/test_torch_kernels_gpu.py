@@ -260,10 +260,6 @@ def _alive_signature(g):
                       g.is_loop[a].tolist()))
 
 
-def _rounded(records):
-    return [(seq, round(depth, 4)) for seq, depth in records]
-
-
 def test_device_engine_passes_match_host_engine(cleaning_case):
     """Every pass of the device engine on cuda against the host engine
     (graph/cleaning.py) on the same graph on the CPU: the count, the
@@ -292,9 +288,9 @@ def test_device_engine_passes_match_host_engine(cleaning_case):
         n_h, n_d = hstep(), dstep()
         assert n_d == n_h, step
         removed += n_h[0] if isinstance(n_h, tuple) else n_h
-        # the engines keep depths in float32 and float64: the records'
-        # strings are equal, their depths to the 4 decimals written out
-        assert _rounded(drec) == _rounded(hrec), step
+        # both engines keep depths in float64: the records are equal,
+        # depths included
+        assert drec == hrec, step
         gh, gd = host.to_host(), dev.to_host()
         assert _alive_signature(gd) == _alive_signature(gh), step
         np.testing.assert_array_equal(gd.sdbg.valid, gh.sdbg.valid, step)

@@ -58,12 +58,15 @@ def _sources(rng):
     """Whole source tensors of every dtype an exchange carries."""
     f = rng.standard_normal(ROWS).astype(np.float32)
     f[:4] = [-0.0, np.inf, -np.inf, np.nan]
+    d = rng.standard_normal(ROWS)
+    d[:4] = [-0.0, np.inf, -np.inf, np.nan]
     return [
         torch.from_numpy(rng.integers(-2**40, 2**40, ROWS)),
         torch.from_numpy(rng.integers(-2**31, 2**31, ROWS).astype(
             np.int32)),
         torch.from_numpy(rng.random(ROWS) < 0.5),
         torch.from_numpy(f),
+        torch.from_numpy(d),
         torch.from_numpy(rng.integers(0, 2, ROWS).astype(np.int8)),
         torch.from_numpy(rng.integers(-9, 9, (ROWS, 4))),
     ]
@@ -79,10 +82,12 @@ def _local(rows: Rows, per_shard) -> Blocks:
 
 
 def _same(a: torch.Tensor, b: torch.Tensor, what) -> None:
-    """Bit-exact equality (float32 compared by bit pattern)."""
+    """Bit-exact equality (floats compared by bit pattern)."""
     assert a.dtype == b.dtype and a.shape == b.shape, what
     if a.dtype == torch.float32:
         a, b = a.view(torch.int32), b.view(torch.int32)
+    elif a.dtype == torch.float64:
+        a, b = a.view(torch.int64), b.view(torch.int64)
     assert torch.equal(a, b), what
 
 
