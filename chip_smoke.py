@@ -149,7 +149,32 @@ Not in the main run, for their time (each a chip call of its own,
 README): phase_meta(torch, None), the whole preset; phase_cpu_ladders(),
 [14] (c)'s and [15] (b)'s runs again on cpu, byte-identical to their
 cuda runs (after _community_ladder and phase_meta in the same command);
-phase_diff(flags), which bisects a cuda/cpu difference by rung.
+phase_diff(flags), which bisects a cuda/cpu difference by rung; and
+
+16. phase_community100(torch): megahit_tpu's largest run
+   (RESULTS.md:120-129) on the 100-genome community of
+   scripts/make_community.py --genomes 100 --max-bp 800000 --seed 249
+   (45.2 Mbp of genome, 808 Mbp of reads; cached in chip_smoke_data/;
+   its genome and read totals and df of its directory printed): (b) the
+   CLI with --k-list 21,41,61 --kmin-1pass at the default min_count 2
+   on cuda in a child process (its own peak host memory; kernel counters
+   read around it), whose log must show 2 x the reads' windows at k1 =
+   22 spilled, 21 or more rounds of at most round_cap_rows() rows (each
+   round's rows, seconds and sort seconds printed), a first_graph.mercy
+   phase, every rung cleaned on the device (the k=21 graph's total edge
+   multiplicity printed beside the device engine's 2^31 bound), and the
+   contigs held to the genomes as in [14] (c); wall, stages, assemble split,
+   idle share, peak memories and contig stats printed beside
+   megahit_tpu's record; then (a) count_canonical_kmers(min_count=2) on
+   cuda over the same reads, the chunked branch at its 2^30-row ceiling
+   (kernel 1 once a chunk, 12 or more; kernel 2 once or more; peak
+   device memory), whose solid keys and counts must equal the canonical
+   solid rows of (b)'s tmp/k21/k21.edges.npz, and kernels 1 and 2 at
+   those shapes against their plain versions, with times, byte bounds
+   and unique_consecutive. phase_community100_cpu(k_list) ((c), after
+   _community100_cli(torch, comm, k_list) in the same command; k_list
+   "21" keeps the pair inside one call) runs (b) on cpu:
+   final.contigs.fa byte-identical, k21.edges.npz equal array by array.
 
 It then prints the card line, one JSON line with every kernel's numbers
 (kernels 1, 2 with the launches of [6] and, as ladder_launches, of [8]
@@ -184,8 +209,14 @@ CHUNK = 1 << 21
 # isolate's ~13M spilled rows take more than 4 rounds
 ONEPASS_MEMORY = 75_000_000
 # [14]: scripts/make_community.py --seed 42 at its defaults (RESULTS.md's
-# 20-genome community, 195 Mbp of reads)
-COMMUNITY_SEED = 42
+# 20-genome community, 195 Mbp of reads): (cache directory, generator
+# arguments)
+COMMUNITY = ("community_seed42", ["--seed", "42"])
+# [16]: the 100-genome set of megahit_tpu's largest run (RESULTS.md:120-129
+# records 45.4 Mbp of genome and 806 Mbp of reads but not the generator's
+# arguments; these give 45,223,528 bp and 808,217,400 read bases)
+COMMUNITY100 = ("community100_seed249",
+                ["--genomes", "100", "--max-bp", "800000", "--seed", "249"])
 # the count's chunk at the default -m (0.9 x RAM): the driver's batch is
 # max(2^20, min(2^26, budget // 64)) windows, 2^26 above 4.3 GB of RAM
 COUNT_CHUNK = 1 << 26
@@ -1551,44 +1582,40 @@ def phase_mesh(torch, data) -> None:
     log(f"[13] mesh phase {time.monotonic() - t0:.1f}s")
 
 
-def phase_community_data() -> dict:
-    """[14] the 20-genome community (make_community.py --seed 42 at its
-    defaults), generated once into chip_smoke_data/."""
-    d = os.path.join(DATA, f"community_seed{COMMUNITY_SEED}")
+def phase_community_data(spec=COMMUNITY, tag="[14]") -> dict:
+    """A community of scripts/make_community.py: spec is (cache directory
+    under chip_smoke_data/, generator arguments); generated once."""
+    name, args = spec
+    d = os.path.join(DATA, name)
     manifest = os.path.join(d, "manifest.json")  # written last
     if not os.path.exists(manifest):
         t0 = time.monotonic()
         subprocess.run([sys.executable, os.path.join(
-            HERE, "scripts", "make_community.py"), d, "--seed",
-            str(COMMUNITY_SEED)], check=True)
-        log(f"[14] generated the community in {time.monotonic() - t0:.1f}s")
+            HERE, "scripts", "make_community.py"), d] + list(args),
+            check=True)
+        log(f"{tag} generated the community in {time.monotonic() - t0:.1f}s")
     with open(manifest) as fh:
         genomes = json.load(fh)
-    log(f"[14] community: {len(genomes)} genomes, "
+    log(f"{tag} community: {len(genomes)} genomes, "
         f"{sum(g['bp'] for g in genomes)} bp of genome, "
         f"{sum(g['pairs'] for g in genomes)} pairs ({d})")
     return {"dir": d, "r1": os.path.join(d, "reads_1.fa"),
             "r2": os.path.join(d, "reads_2.fa"), "genomes": genomes}
 
 
-def _community_kernels(torch, comm) -> list[dict]:
-    """Kernels 1 and 2 at the community's shapes on the card, each
-    against its plain version bit for bit: kernel 1 over the first
-    2^26-base chunk of the count's chunked branch, kernel 2 over the
-    branch's sorted, sentinel-padded rows; times (CUDA events), byte
-    bounds and, for kernel 2, torch.unique_consecutive."""
+def _community_kernels(torch, lib, tag="[14]", name="community"
+                       ) -> list[dict]:
+    """Kernels 1 and 2 at a community's shapes on the card, each against
+    its plain version bit for bit: kernel 1 over the first 2^26-base
+    chunk of the count's chunked branch, kernel 2 over the branch's
+    sorted, sentinel-padded rows; times (CUDA events), byte bounds and,
+    for kernel 2, torch.unique_consecutive."""
     from megahit_tpu_torch.core import kernels, kmerops
     from megahit_tpu_torch.graph import counter
-    from megahit_tpu_torch.io.lib import build_lib
 
     k1 = 22
     w = kmerops.words_per_kmer(k1)
-    t0 = time.monotonic()
-    lib = build_lib([comm["r1"]], [comm["r2"]], [], [])
     pool, starts = lib.pool, lib.starts
-    n_bases = int(starts[-1])
-    log(f"[14] build_lib: {lib.num_seqs} reads, {n_bases} read bases "
-        f"({time.monotonic() - t0:.1f}s)")
 
     _, sub, _ = next(counter._chunks(pool, starts, k1, COUNT_CHUNK))
     err1 = _parity_k1(torch, sub, k1)
@@ -1600,7 +1627,7 @@ def _community_kernels(torch, comm) -> list[dict]:
         iters=3, warm=1)
     bytes1 = packed.shape[0] * 4 + w * 4 * n_out
     bound1 = bytes1 / HBM_BYTES_PER_S * 1e3
-    log(f"[14] canonical_all_kmers k1={k1} over a {COUNT_CHUNK}-base chunk "
+    log(f"{tag} canonical_all_kmers k1={k1} over a {COUNT_CHUNK}-base chunk "
         f"({packed.shape[0]} words): {n_out} offsets, max_abs_err {err1}, "
         f"{ms1:.3f} ms (plain {plain1:.3f} ms), bound {bound1:.3f} ms "
         f"({bytes1} B), {bound1 / ms1:.1%} of bound")
@@ -1609,19 +1636,21 @@ def _community_kernels(torch, comm) -> list[dict]:
     words, n_inv, n_chunks = counter._chunked_sorted_words(
         pool, starts, k1, COUNT_CHUNK, "cuda")
     cols = [kmerops.i32_bits(c) for c in words]
-    key = kmerops.pack_sort_keys(words)[0]
     del words
     n = cols[0].shape[0]
-    err2 = _parity_k2(torch, cols, n_inv)
+    torch.cuda.empty_cache()
     ms2 = cuda_ms(torch, lambda: kernels.count_sorted_runs(cols, n_inv))
+    err2 = _parity_k2(torch, cols, n_inv)
     plain2 = cuda_ms(
         torch, lambda: kernels.count_sorted_runs_plain(cols, n_inv),
         iters=2, warm=1)
+    torch.cuda.empty_cache()
+    key = kmerops.pack_sort_keys([kmerops.u32_value(c) for c in cols])[0]
     lib2 = cuda_ms(torch, lambda: torch.unique_consecutive(
         key, return_counts=True), iters=3, warm=1)
     bytes2 = w * 4 * n + 5 * n
     bound2 = bytes2 / HBM_BYTES_PER_S * 1e3
-    log(f"[14] count_sorted_runs over the chunked branch's rows "
+    log(f"{tag} count_sorted_runs over the chunked branch's rows "
         f"({n_chunks} chunks): n={n}, n_inv={n_inv}, max_abs_err {err2}, "
         f"{ms2:.3f} ms (plain {plain2:.3f} ms, unique_consecutive "
         f"{lib2:.3f} ms), bound {bound2:.3f} ms ({bytes2} B), "
@@ -1629,22 +1658,33 @@ def _community_kernels(torch, comm) -> list[dict]:
     del cols, key
     torch.cuda.empty_cache()
     if err1 or err2:
-        fail(f"[14] kernel parity at the community's shapes: "
+        fail(f"{tag} kernel parity at the community's shapes: "
              f"canonical_all_kmers {err1}, count_sorted_runs {err2}")
     return [
-        {"name": "canonical_all_kmers/community", "route": "cuda",
+        {"name": f"canonical_all_kmers/{name}", "route": "cuda",
          "source": "megahit_tpu_torch/csrc/canonical_kmers.cu",
          "replaces": "megahit_tpu/core/pallas_kernels.py:105",
          "launches": 0, "max_abs_err": err1, "ms": ms1,
          "plain_ms": plain1, "bound_ms": bound1, "bound_by": "bytes",
          "library_ms": None},
-        {"name": "count_sorted_runs/community", "route": "cuda",
+        {"name": f"count_sorted_runs/{name}", "route": "cuda",
          "source": "megahit_tpu_torch/csrc/count_runs.cu",
          "replaces": "megahit_tpu/core/pallas_kernels.py:286",
          "launches": 0, "max_abs_err": err2, "ms": ms2,
          "plain_ms": plain2, "bound_ms": bound2, "bound_by": "bytes",
          "library_ms": lib2},
     ]
+
+
+def _community_lib(comm, tag: str):
+    """The community's reads as one SequenceLib (host)."""
+    from megahit_tpu_torch.io.lib import build_lib
+
+    t0 = time.monotonic()
+    lib = build_lib([comm["r1"]], [comm["r2"]], [], [])
+    log(f"{tag} build_lib: {lib.num_seqs} reads, {int(lib.starts[-1])} "
+        f"read bases ({time.monotonic() - t0:.1f}s)")
+    return lib
 
 
 def _fasta_codes(path: str) -> list:
@@ -1689,7 +1729,7 @@ def _canonical_32mers(seqs):
     return np.concatenate(out)
 
 
-def _check_recall(tag: str, out: str, comm) -> None:
+def _check_recall(tag: str, out: str, comm) -> dict:
     """Per-genome 32-mer recall of a run's contigs: every genome at
     RECALL_MIN_COV or more must reach RECALL_MIN, and the contig total
     stay at most TOTAL_MAX x the genome total."""
@@ -1723,6 +1763,8 @@ def _check_recall(tag: str, out: str, comm) -> None:
              f"{RECALL_MIN}: {low}")
     if total > TOTAL_MAX * genome_total:
         fail(f"{tag} contig total {total} above {TOTAL_MAX} x {genome_total}")
+    return {"contigs": len(contigs), "bp": total, "n50": st["n50"],
+            "mean": float(np.mean(recalls)), "worst": min(recalls)}
 
 
 def phase_community(torch) -> tuple[list[dict], dict, dict]:
@@ -1732,7 +1774,7 @@ def phase_community(torch) -> tuple[list[dict], dict, dict]:
     the genomes by 32-mer recall."""
     t_all = time.monotonic()
     comm = phase_community_data()
-    kern = _community_kernels(torch, comm)
+    kern = _community_kernels(torch, _community_lib(comm, "[14]"))
     reads = ["-1", comm["r1"], "-2", comm["r2"], "-f"]
 
     out_a = os.path.join(DATA, "community_k21")
@@ -1791,25 +1833,18 @@ def _community_ladder(torch, comm) -> dict:
         torch, ["-1", comm["r1"], "-2", comm["r2"], "-f", "-o", out_c])
     log(f"[14] (c) community, default k list on cuda: {wall:.1f}s wall, "
         f"launches {launches_c}, peak device memory {peak / 2**30:.2f} GiB")
-    _log_rungs("[14] (c)", out_c)
     _device_profile("[14] (c)", prof, wall)
     del prof
-    _log_stages("[14] (c)", out_c)
-    split = _assemble_split(out_c)
-    log("[14] (c) assemble split summed over rungs: " + ", ".join(
-        f"{name} {split.get(name, 0.0):.2f}s" for name in (
-            "sdbg_tips", "unitig_build", "cleaning_rounds", "prune_output")))
-    _check_cleaning("[14] (c)", out_c)
     if launches_c["canonical_all_kmers"] < 3 \
             or launches_c["count_sorted_runs"] < 1:
         fail(f"[14] (c) kernel launches {launches_c}: kernel 1 needs 3 or "
              "more, kernel 2 one or more")
-    _check_recall("[14] (c)", out_c, comm)
+    _check_run("[14] (c)", out_c, comm)
     return launches_c
 
 
 
-META_CHILD = r"""
+CLI_CHILD = r"""
 import json, resource, sys
 sys.path.insert(0, sys.argv[1])
 import torch
@@ -1820,6 +1855,75 @@ print(json.dumps({"wall": wall, "launches": launches, "peak": peak,
                   "busy": busy, "maxrss": resource.getrusage(
                       resource.RUSAGE_SELF).ru_maxrss * 1024}))
 """
+
+
+def _child_cli(tag: str, argv: list[str], what: str) -> dict:
+    """The CLI on cuda in a child process (so its ru_maxrss is its own),
+    through _cuda_run: the kernel counters set to 0 just before and read
+    just after, the device's idle share. Returns the child's numbers
+    (wall, launches, peak device bytes, busy seconds, maxrss bytes)."""
+    res = subprocess.run(
+        [sys.executable, "-c", CLI_CHILD, HERE, json.dumps(argv), tag],
+        stdout=subprocess.PIPE, text=True, timeout=3300, cwd=HERE)
+    lines = res.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        log(line)
+    if res.returncode != 0:
+        fail(f"{tag} the CLI child exited {res.returncode}")
+    child = json.loads(lines[-1])
+    log(f"{tag} {what} on cuda (child process): {child['wall']:.1f}s wall, "
+        f"launches {child['launches']} (the 1-pass route reaches no kernel, "
+        f"as megahit_tpu's bucketed build reaches no Pallas kernel), peak "
+        f"device memory {child['peak'] / 2**30:.2f} GiB, peak host memory "
+        f"(ru_maxrss) {child['maxrss'] / 2**30:.2f} GiB")
+    return child
+
+
+def _onepass_build(tag: str, out: str, mercy: bool) -> dict:
+    """The 1-pass k=21 build in a run's log: rows spilled, each round's
+    rows, seconds and sort seconds, edges; a first_graph.mercy phase must
+    have run if and only if `mercy`. Returns the rows spilled and each
+    round's rows."""
+    with open(os.path.join(out, "log")) as fh:
+        text = fh.read()
+    spill = re.search(r"bucketed build k=22: (\d+) rows spilled in "
+                      r"([0-9.]+)s, (\d+) rounds \(budget (\d+)\)", text)
+    built = re.search(r"k=21 \(1-pass\): (\d+) edges, (\d+) rounds \(max "
+                      r"(\d+) rows\)", text)
+    if not spill or not built:
+        fail(f"{tag} the k=21 graph was not built by the 1-pass route")
+    # the k=22 build's rounds (a later rung may build out of core too)
+    rounds = re.findall(r"bucketed round \d+/\d+ .*: (\d+) rows, (\d+) "
+                        r"edges, ([0-9.]+)s \(sort ([0-9.]+)s\)",
+                        text[spill.end():built.start()])
+    ran = re.search(r"mercy: (\d+) gap windows -> (\d+) distinct mercy "
+                    r"edges", text)
+    if ("first_graph.mercy" in text) != mercy or (ran is None) == mercy:
+        fail(f"{tag} a mercy phase " + ("did not run" if mercy else
+                                        "ran under min_count 1"))
+    log(f"{tag} 1-pass k=21 build: {spill.group(1)} rows spilled in "
+        f"{spill.group(2)}s, {spill.group(3)} rounds (budget "
+        f"{spill.group(4)} rows; largest {built.group(3)} rows), "
+        f"{built.group(1)} edges; rounds: " + ", ".join(
+            f"{r} rows {t}s (sort {u}s)" for r, _, t, u in rounds)
+        + (f"; mercy: {ran.group(1)} gap windows, {ran.group(2)} mercy "
+           "edges" if mercy else "; no mercy phase"))
+    return {"spilled": int(spill.group(1)),
+            "rounds": [int(r) for r, _, _, _ in rounds]}
+
+
+def _check_run(tag: str, out: str, comm) -> dict:
+    """A community run's rungs, stages and assemble split, every rung
+    cleaned on the device, and its contigs held to the genomes
+    (_check_recall)."""
+    _log_rungs(tag, out)
+    _log_stages(tag, out)
+    split = _assemble_split(out)
+    log(f"{tag} assemble split summed over rungs: " + ", ".join(
+        f"{name} {split.get(name, 0.0):.2f}s" for name in (
+            "sdbg_tips", "unitig_build", "cleaning_rounds", "prune_output")))
+    _check_cleaning(tag, out)
+    return _check_recall(tag, out, comm)
 
 
 def _meta_flags(k_list) -> list[str]:
@@ -1845,22 +1949,8 @@ def _meta_cli(torch, comm, k_list) -> tuple[str, dict]:
     out = os.path.join(DATA, "community_meta")
     base = ["-1", comm["r1"], "-2", comm["r2"], "-f", "--keep-tmp-files",
             "-o", out]
-    res = subprocess.run(
-        [sys.executable, "-c", META_CHILD, HERE,
-         json.dumps(base + _meta_flags(k_list)), "[15] (b)"],
-        stdout=subprocess.PIPE, text=True, timeout=3300, cwd=HERE)
-    lines = res.stdout.strip().splitlines()
-    for line in lines[:-1]:
-        log(line)
-    if res.returncode != 0:
-        fail(f"[15] (b) the CLI child exited {res.returncode}")
-    child = json.loads(lines[-1])
-    log(f"[15] (b) community {' '.join(_meta_flags(k_list))} on cuda "
-        f"(child process): {child['wall']:.1f}s wall, launches "
-        f"{child['launches']} (the 1-pass route reaches no kernel, as "
-        f"megahit_tpu's bucketed build reaches no Pallas kernel), peak "
-        f"device memory {child['peak'] / 2**30:.2f} GiB, peak host memory "
-        f"(ru_maxrss) {child['maxrss'] / 2**30:.2f} GiB")
+    child = _child_cli("[15] (b)", base + _meta_flags(k_list),
+                       f"community {' '.join(_meta_flags(k_list))}")
 
     want = options_from_args(make_parser().parse_args(
         base + ["--presets", "meta-sensitive", "--device", "cuda"]))
@@ -1875,33 +1965,8 @@ def _meta_cli(torch, comm, k_list) -> tuple[str, dict]:
     log(f"[15] (b) options.json equal to --presets meta-sensitive's but "
         f"for {differ or 'nothing'}")
 
-    with open(os.path.join(out, "log")) as fh:
-        text = fh.read()
-    spill = re.search(r"bucketed build k=22: (\d+) rows spilled in "
-                      r"([0-9.]+)s, (\d+) rounds \(budget (\d+)\)", text)
-    rounds = re.findall(r"bucketed round \d+/\d+ .*: (\d+) rows, (\d+) "
-                        r"edges, ([0-9.]+)s \(sort ([0-9.]+)s\)", text)
-    built = re.search(r"k=21 \(1-pass\): (\d+) edges, (\d+) rounds \(max "
-                      r"(\d+) rows\)", text)
-    if not spill or not built:
-        fail("[15] (b) the k=21 graph was not built by the 1-pass route")
-    if "first_graph.mercy" in text:
-        fail("[15] (b) a mercy phase ran under min_count 1")
-    log(f"[15] (b) 1-pass k=21 build: {spill.group(1)} rows spilled in "
-        f"{spill.group(2)}s, {spill.group(3)} rounds (budget "
-        f"{spill.group(4)} rows; largest {built.group(3)} rows), "
-        f"{built.group(1)} edges; rounds: " + ", ".join(
-            f"{r} rows {t}s (sort {u}s)" for r, _, t, u in rounds)
-        + "; no mercy phase")
-    _log_rungs("[15] (b)", out)
-    _log_stages("[15] (b)", out)
-    split = _assemble_split(out)
-    log("[15] (b) assemble split summed over rungs: " + ", ".join(
-        f"{name} {split.get(name, 0.0):.2f}s" for name in (
-            "sdbg_tips", "unitig_build", "cleaning_rounds", "prune_output")))
-    _check_cleaning("[15] (b)", out)
-    _check_recall("[15] (b)", out, comm)
-    child["spilled"] = int(spill.group(1))
+    child["spilled"] = _onepass_build("[15] (b)", out, mercy=False)["spilled"]
+    _check_run("[15] (b)", out, comm)
     return out, child
 
 
@@ -2023,6 +2088,209 @@ def phase_cpu_ladders(k_list=META_K_LIST) -> None:
         _log_stages(f"[cpu] {name}", out)
         _log_split(f"[cpu] {name}", os.path.join(DATA, name), out)
 
+
+
+# [16] (b): megahit_tpu's flags for its 100-genome run, at the default
+# min_count 2 (1-pass build, then mercy over the 1-pass graph)
+K_LIST100 = "21,41,61"
+# 1.39e9 spilled rows in rounds of at most round_cap_rows() = 2^26
+MIN_ROUNDS100 = 21
+# megahit_tpu's own record (RESULTS.md:120-126), printed beside [16] (b)
+RECORD100 = ("megahit_tpu's record on its own 100-genome read set of the "
+             "same shape (RESULTS.md:124-126; not a limit): 1.386e9 rows "
+             "in 22 rounds, maxrss 21 GB, 2622.9 s, 8,615 contigs, 43.96 "
+             "Mbp, N50 150,392, 32-mer recall mean 96.09%, worst 77.25%")
+
+
+def _k21_multiplicity(keys, counts) -> int:
+    """Total valid multiplicity of the k=21 graph that `keys`, `counts`
+    (canonical edges) finalize to: both strands, a palindrome once."""
+    import numpy as np
+
+    from megahit_tpu_torch.graph.bucketed import np_revcomp
+
+    pal = (np_revcomp(keys, 22) == keys).all(axis=1)
+    c = counts.astype(np.int64)
+    return int(2 * c.sum() - c[pal].sum())
+
+
+def _community100_cli(torch, comm, k_list=K_LIST100) -> dict:
+    """[16] (b): the CLI on cuda in a child process with megahit_tpu's
+    flags (--k-list 21,41,61 --kmin-1pass, min_count 2; k_list="21" cuts
+    it to the first rung for (c)): the 1-pass k=21 build in
+    MIN_ROUNDS100 or more rounds of at most round_cap_rows(), mercy over
+    the 1-pass graph, every rung cleaned on the device (the k=21 total
+    multiplicity printed beside the device engine's 2^31 bound), the
+    contigs held to the genomes. Returns
+    the child's numbers and the rows spilled."""
+    from megahit_tpu_torch.graph.bucketed import round_cap_rows
+
+    import numpy as np
+
+    tag = "[16] (b)"
+    out = os.path.join(DATA, "community100")
+    torch.cuda.empty_cache()
+    child = _child_cli(tag, [
+        "-1", comm["r1"], "-2", comm["r2"], "--k-list", k_list,
+        "--kmin-1pass", "-f", "--keep-tmp-files", "-o", out],
+        f"100-genome community --k-list {k_list} --kmin-1pass")
+    built = _onepass_build(tag, out, mercy=True)
+    rounds, cap = built["rounds"], round_cap_rows()
+    if len(rounds) < MIN_ROUNDS100 or max(rounds) > cap:
+        fail(f"{tag} {len(rounds)} rounds, the largest {max(rounds)} rows: "
+             f"{MIN_ROUNDS100} or more of at most {cap} rows expected")
+    z = np.load(os.path.join(out, "tmp", "k21", "k21.edges.npz"))
+    total = _k21_multiplicity(z["keys"], z["counts"])
+    log(f"{tag} {len(rounds)} rounds of at most {max(rounds)} rows (cap "
+        f"{cap}); k=21 total valid multiplicity {total} "
+        f"({total / 2**31:.3f} x 2^31, the device engine's bound)")
+    st = _check_run(tag, out, comm)
+    log(f"{tag} summary: {child['wall']:.1f}s wall, idle share "
+        f"{1 - child['busy'] / child['wall']:.1%}, peak device "
+        f"{child['peak'] / 2**30:.2f} GiB, peak host "
+        f"{child['maxrss'] / 2**30:.2f} GiB; {built['spilled']} rows in "
+        f"{len(rounds)} rounds; {st['contigs']} contigs, {st['bp']} bp, N50 "
+        f"{st['n50']}, recall mean {st['mean']:.2%}, worst "
+        f"{st['worst']:.2%}")
+    log(f"{tag} {RECORD100}")
+    return {"out": out, "spilled": built["spilled"], **child}
+
+
+def _community100_count(torch, comm, b) -> None:
+    """[16] (a), after (b) has exited: count_canonical_kmers(min_count=2)
+    on cuda over the same reads, the chunked branch at its 2^30-row
+    ceiling, with the kernel counters set to 0 just before and read just
+    after (kernel 1 once a chunk, 12 or more; kernel 2 once or more): its
+    solid keys and counts must equal the canonical solid rows of (b)'s
+    1-pass graph (the head of tmp/k21/k21.edges.npz; mercy rows, count
+    1, follow). Then kernels 1 and 2 at those shapes."""
+    import numpy as np
+
+    from megahit_tpu_torch.core import kernels
+    from megahit_tpu_torch.graph.counter import (
+        count_canonical_kmers, num_windows)
+    from megahit_tpu_torch.utils.log import get_logger, setup_logging
+
+    tag = "[16] (a)"
+    lib = _community_lib(comm, tag)
+    windows = num_windows(lib.starts, 22)
+    if b["spilled"] != 2 * windows:
+        fail(f"[16] (b) spilled {b['spilled']} rows, not 2 x the reads' "
+             f"{windows} windows at k1 = 22")
+    log(f"[16] (b) rows spilled {b['spilled']} = 2 x the reads' {windows} "
+        "windows at k1 = 22")
+    z = np.load(os.path.join(b["out"], "tmp", "k21", "k21.edges.npz"))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    setup_logging()  # console only
+    msgs = _Messages()
+    get_logger().addHandler(msgs)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        kernels.canonical_all_kmers.launches = 0
+        kernels.count_sorted_runs.launches = 0
+        keys, counts = count_canonical_kmers(
+            lib.pool, lib.starts, 22, 2, batch_windows=COUNT_CHUNK,
+            device="cuda")
+        torch.cuda.synchronize()
+        launches = {
+            "canonical_all_kmers": kernels.canonical_all_kmers.launches,
+            "count_sorted_runs": kernels.count_sorted_runs.launches}
+        t_count = time.monotonic() - t0
+    finally:
+        get_logger().removeHandler(msgs)
+    peak = torch.cuda.max_memory_allocated()
+    info = next((x for x in msgs.messages
+                 if x.startswith("count (chunked)")), "")
+    m = re.search(r"(\d+) chunks of \d+ bases, (\d+) windows padded to "
+                  r"(\d+) rows", info)
+    if not m:
+        fail(f"{tag} the count did not take the chunked branch")
+    n_chunks = int(m.group(1))
+    if launches["canonical_all_kmers"] != n_chunks or n_chunks < 12 \
+            or launches["count_sorted_runs"] < 1:
+        fail(f"{tag} kernel launches {launches} over {n_chunks} chunks: "
+             "kernel 1 once a chunk (12 or more), kernel 2 one or more")
+    n = len(keys)
+    if not (np.array_equal(keys, z["keys"][:n])
+            and np.array_equal(counts, z["counts"][:n])):
+        fail(f"{tag} the count's {n} solid keys and counts differ from "
+             "(b)'s 1-pass graph's canonical solid rows")
+    mercy = z["counts"][n:]
+    if len(mercy) and mercy.max() != 1:
+        fail(f"{tag} rows after the solid ones in k21.edges.npz are not "
+             "mercy edges (count 1)")
+    log(f"{tag} count_canonical_kmers(min_count=2, cuda): {t_count:.1f}s, "
+        f"{info}; launches {launches}; peak device memory "
+        f"{peak / 2**30:.2f} GiB ({peak} B); its {n} solid keys and counts "
+        f"equal (b)'s 1-pass graph's canonical solid rows ({len(mercy)} "
+        "mercy rows follow)")
+    del keys, counts, z
+    torch.cuda.empty_cache()
+    kern = _community_kernels(torch, lib, tag, "community100")
+    for kd in kern:
+        kd["launches"] = launches[kd["name"].split("/")[0]]
+    log(f"{tag} kernels {json.dumps(kern)}")
+
+
+def phase_community100(torch) -> None:
+    """[16] megahit_tpu's 100-genome --kmin-1pass run (RESULTS.md:120-129)
+    on the card: (b) the CLI on cuda in a child process, then (a) the
+    count route at its 2^30-row ceiling against (b)'s 1-pass graph. Kept
+    out of main() for its time (README)."""
+    t_all = time.monotonic()
+    comm = phase_community_data(COMMUNITY100, "[16]")
+    genome = sum(g["bp"] for g in comm["genomes"])
+    bases = sum(2 * g["pairs"] * 150 for g in comm["genomes"])
+    df = subprocess.run(["df", "-h", comm["dir"]], capture_output=True,
+                        text=True).stdout.strip().splitlines()[-1]
+    deep = sum(g["cov"] >= RECALL_MIN_COV for g in comm["genomes"])
+    log(f"[16] {genome} bp of genome, {bases} read bases (megahit_tpu's "
+        f"record: 45.4 Mbp, 806 Mbp); {deep} genomes at {RECALL_MIN_COV}x "
+        f"or more; df: {df}")
+    b = _community100_cli(torch, comm)
+    torch.cuda.empty_cache()
+    _community100_count(torch, comm, b)
+    log(f"[16] phase {time.monotonic() - t_all:.1f}s")
+
+
+def phase_community100_cpu(k_list=K_LIST100) -> None:
+    """[16] (c): (b)'s run again on cpu: final.contigs.fa byte-identical
+    and tmp/k21/k21.edges.npz equal array by array (the cpu rounds sort
+    on the host: an independent sort of the same rows). Needs (b)'s
+    output from the same command (_community100_cli with the same
+    k_list); kept out of main() for its time (README)."""
+    import numpy as np
+
+    comm = phase_community_data(COMMUNITY100, "[16]")
+    a, b = os.path.join(DATA, "community100"), os.path.join(
+        DATA, "community100_cpu")
+    t0 = time.monotonic()
+    _run_cli(["-1", comm["r1"], "-2", comm["r2"], "--k-list", k_list,
+              "--kmin-1pass", "-f", "--keep-tmp-files", "--device", "cpu",
+              "-o", b])
+    wall = time.monotonic() - t0
+    with open(os.path.join(a, "final.contigs.fa"), "rb") as f:
+        fa = f.read()
+    with open(os.path.join(b, "final.contigs.fa"), "rb") as f:
+        fb = f.read()
+    if fa != fb or not fa:
+        fail("[16] (c) final.contigs.fa differs between cpu and cuda")
+    za, zb = (np.load(os.path.join(d, "tmp", "k21", "k21.edges.npz"))
+              for d in (a, b))
+    bad = sorted(set(za.files) ^ set(zb.files)) + [
+        f for f in za.files if f in zb.files and (
+            za[f].dtype != zb[f].dtype or not np.array_equal(za[f], zb[f]))]
+    if bad:
+        fail(f"[16] (c) k21.edges.npz differs between cpu and cuda: {bad}")
+    log(f"[16] (c) --k-list {k_list} --kmin-1pass on cpu: {wall:.1f}s "
+        f"wall; final.contigs.fa byte-identical to (b)'s ({fa.count(b'>')} "
+        f"contigs), k21.edges.npz equal array by array ({len(za['keys'])} "
+        "rows)")
+    _onepass_build("[16] (c)", b, mercy=True)
+    _log_stages("[16] (c)", b)
+    _log_split("[16] (b) | (c)", a, b)
 
 
 def phase_diff(flags=()) -> list[str]:
