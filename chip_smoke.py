@@ -15,12 +15,14 @@ Phases, each printing its own lines:
    for [15], to keep the script inside its time limit);
 4. kernel parity on the card, each kernel against its plain PyTorch
    version, exact equality: at the main path's shapes (the isolate's
-   pool at k1=22), at k1 in {32, 42, 56}, and (kernel 2) the main
+   pool at k1=22), (kernel 1) at k1 in {16, 32, 42, 56, 128, 255} and
+   on a ragged pool 4 B past a 16-B boundary, and (kernel 2) the main
    path's n as one run (every tile but the first headless: the longest
    look-ahead chain) and odd n with sentinel rows and one run spanning
    many tiles; with each kernel's time, byte bound and library
-   yardstick, and kernel 2's device work per call (torch.profiler: one
-   kernel launch and at most one memset, else the phase fails); and
+   yardstick, and the device work per call (torch.profiler) of kernel 1
+   (one kernel launch and nothing else: no fill, no copy) and kernel 2
+   (one kernel launch and at most one memset), else the phase fails; and
    the count's chunked branch against its single shot on
    the card. Then the two merge kernels (3, 4) through their path,
    sort_planes: at 2^24 keys (uniform, duplicate-heavy, ascending and
@@ -115,7 +117,8 @@ Phases, each printing its own lines:
    chip_smoke_data/): kernel 1 over one 2^26-base chunk of the count's
    chunked branch and kernel 2 over the branch's 2^28 sorted,
    sentinel-padded rows, each against its plain version bit for bit,
-   with times, byte bounds and (kernel 2) torch.unique_consecutive;
+   with times, byte bounds, (kernel 2) torch.unique_consecutive and
+   (kernel 1) its device work per call, one kernel and nothing else;
    (a) --k-list 21 on cuda, which must log the chunked count in 3 or
    more chunks and launch kernel 1 3 or more times and kernel 2 once
    or more (counters set to 0 just before, read just after), with wall,
@@ -149,7 +152,9 @@ Not in the main run, for their time (each a chip call of its own,
 README): phase_meta(torch, None), the whole preset; phase_cpu_ladders(),
 [14] (c)'s and [15] (b)'s runs again on cpu, byte-identical to their
 cuda runs (after _community_ladder and phase_meta in the same command);
-phase_diff(flags), which bisects a cuda/cpu difference by rung; and
+phase_diff(flags), which bisects a cuda/cpu difference by rung;
+phase_k1_turns(torch, parent), kernel 1 beside another commit's tree
+in turns (parent, this, this, parent); and
 
 16. phase_community100(torch): megahit_tpu's largest run
    (RESULTS.md:120-129) on the 100-genome community of
@@ -307,11 +312,21 @@ def phase_data() -> dict:
             "genome": os.path.join(d, "genome.fa")}
 
 
-def _parity_k1(torch, words_np, k1: int) -> int:
-    """kernel 1 vs plain at k1 on the card -> max |difference|."""
+def _card_words(torch, words_np, offset: int = 0):
+    """u32 words as an int32 tensor on the card that starts `offset`
+    words past a 16-B boundary."""
+    buf = torch.empty(len(words_np) + offset, dtype=torch.int32,
+                      device="cuda")
+    buf[offset:].copy_(torch.from_numpy(words_np.view("int32")))
+    return buf[offset:]
+
+
+def _parity_k1(torch, words_np, k1: int, offset: int = 0) -> int:
+    """kernel 1 vs plain at k1 on the card -> max |difference|; the pool
+    starts `offset` words past a 16-B boundary."""
     from megahit_tpu_torch.core import kernels
 
-    packed = torch.from_numpy(words_np.view("int32")).cuda()
+    packed = _card_words(torch, words_np, offset)
     got = kernels.canonical_all_kmers(packed, k1)
     want = kernels.canonical_all_kmers_plain(packed, k1)
     torch.cuda.synchronize()
@@ -334,6 +349,48 @@ def _device_ops(torch, fn, iters: int = 10) -> list:
         torch.cuda.synchronize()
     return [(e.key, e.self_device_time_total / 1e3 / iters, e.count / iters)
             for e in prof.key_averages() if e.self_device_time_total > 0]
+
+
+def _k1_ops(torch, tag: str, packed, k1: int) -> None:
+    """Kernel 1's device work per call. Prints what torch.profiler sees
+    on the device (_device_ops) and the torch ops that one call
+    dispatches. Fails if the profiler saw a device op other than kernel
+    1, if the call dispatched a torch op other than the output's
+    allocation (torch.empty: no fill, no copy of the pool), or if it
+    did not bump the launch counter exactly once. The profiler's
+    per-call counts are printed, not held to 1: late in a long process
+    it loses device events (9 of 10 calls seen, 6 of 20, none), so a
+    session that saw none is taken again, up to 3."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from megahit_tpu_torch.core import kernels
+
+    class Dispatched(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+
+    for session in range(1, 4):
+        ops = _device_ops(
+            torch, lambda: kernels.canonical_all_kmers(packed, k1), iters=20)
+        if ops:
+            break
+    before = kernels.canonical_all_kmers.launches
+    with Dispatched() as mode:
+        kernels.canonical_all_kmers(packed, k1)
+    launched = kernels.canonical_all_kmers.launches - before
+    log(f"{tag} canonical_all_kmers per call on the device: " + ", ".join(
+        f"{name[:40]} {ms:.4f} ms x{cnt:g}" for name, ms, cnt in ops)
+        + f" (profiler session {session}); torch ops a call: {mode.names}, "
+        f"launches a call: {launched}")
+    if (any("canon" not in name for name, _, _ in ops) or launched != 1
+            or set(mode.names) - {"empty"}):
+        fail(f"{tag} canonical_all_kmers is not one kernel launch a call: "
+             f"device ops {ops}, torch ops {mode.names}, launches {launched}")
 
 
 def _parity_k2(torch, cols, n_inv: int) -> int:
@@ -378,10 +435,17 @@ def phase_kernels(torch, data) -> list[dict]:
     log(f"[4] canonical_all_kmers k1={k1}: {n_out} offsets, "
         f"max_abs_err {err1}, {ms1:.3f} ms (plain {plain1:.3f} ms), "
         f"bound {bound1:.3f} ms ({bytes1} B), {bound1 / ms1:.1%} of bound")
-    for kk in (32, 42, 56):
+    _k1_ops(torch, "[4]", packed, k1)
+    for kk in (16, 32, 42, 56, 128, 255):
         e = _parity_k1(torch, words_np[: (1 << 20) + 8], kk)
         log(f"[4] canonical_all_kmers k1={kk}: max_abs_err {e}")
         err1 = max(err1, e)
+    # a ragged pool (2047 window starts past a 2048 multiple) that starts
+    # 4 B past a 16-B boundary
+    e = _parity_k1(torch, words_np[: 3 * 2048 + 2047 + w], k1, offset=1)
+    log(f"[4] canonical_all_kmers k1={k1}, {3 * 2048 + 2047 + w} words at "
+        f"a 4-B offset: max_abs_err {e}")
+    err1 = max(err1, e)
 
     # --- kernel 2 on the sorted keys the main path gives it
     vm = np.zeros(q * 16, dtype=bool)
@@ -413,8 +477,8 @@ def phase_kernels(torch, data) -> list[dict]:
     ops = _device_ops(torch, lambda: kernels.count_sorted_runs(cols, n_inv))
     log("[4] count_sorted_runs per call on the device: " + ", ".join(
         f"{name[:40]} {ms:.4f} ms x{cnt:g}" for name, ms, cnt in ops))
-    n_set = sum(c for name, _, c in ops if "memset" in name.lower())
-    if sum(c for _, _, c in ops) - n_set != 1 or n_set > 1:
+    n_set = round(sum(c for name, _, c in ops if "memset" in name.lower()))
+    if round(sum(c for _, _, c in ops)) - n_set != 1 or n_set > 1:
         fail("count_sorted_runs is not one kernel launch and at most one "
              f"memset a call: {ops}")
     del words, cols, packed_key
@@ -475,6 +539,130 @@ def phase_kernels(torch, data) -> list[dict]:
          "plain_ms": plain2, "bound_ms": bound2, "bound_by": "bytes",
          "library_ms": lib2},
     ]
+
+
+# kernel 1's shapes in phase_k1_turns: (name, k1, pool words or None
+# for the isolate's count pool, words from a 16-B boundary to the pool)
+K1_SHAPES = (("isolate", 22, None, 0), ("chunk", 22, (1 << 22) + 3, 0),
+             ("chunk_k56", 56, (1 << 22) + 5, 0),
+             ("chunk_offset1", 22, (1 << 22) + 3, 1))
+_K1_CHILD = """
+import importlib.util, json, sys
+tree, smoke, d = sys.argv[1:4]
+sys.path.insert(0, tree)
+spec = importlib.util.spec_from_file_location("chip_smoke_turn", smoke)
+c = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(c)
+import torch
+print("K1 " + json.dumps(c._k1_times(torch, d)))
+"""
+
+
+def _k1_times(torch, d: str) -> dict:
+    """Kernel 1 of the megahit_tpu_torch first on sys.path, through its
+    own wrapper, at K1_SHAPES (pools in `d`): ms a call (CUDA events, 50
+    calls), the device ops of a call (torch.profiler) and a digest of the
+    output."""
+    import hashlib
+
+    import numpy as np
+
+    from megahit_tpu_torch.core import kernels
+
+    kernels.build_kernels()
+    res = {"kernels": kernels.__file__}
+    for name, k1, _, offset in K1_SHAPES:
+        packed = _card_words(
+            torch, np.load(os.path.join(d, f"{name}.npy")), offset)
+        out = kernels.canonical_all_kmers(packed, k1).cpu().numpy()
+        res[name] = {
+            "digest": hashlib.sha256(out.tobytes()).hexdigest(),
+            "ms": cuda_ms(torch, lambda: kernels.canonical_all_kmers(
+                packed, k1), iters=50, warm=5),
+            "ops": _device_ops(torch, lambda: kernels.canonical_all_kmers(
+                packed, k1), iters=20)}
+        del out, packed
+    return res
+
+
+def phase_k1_turns(torch, parent: str) -> list[dict]:
+    """Kernel 1 of this tree beside the tree at `parent` (another commit
+    unpacked with git archive, e.g. into chip_smoke_data/parent) in
+    turns, parent, this, this, parent, each turn a child process that
+    imports its tree's package: at the isolate's count pool and at a
+    2^26-base chunk of random words at k1 = 22 and 56 (the kernel's work
+    does not depend on the words) and at k1 = 22 starting 4 B past a
+    16-B boundary, each tree through its own wrapper.
+    Fails unless every turn gives the same output. Returns per shape
+    and tree the mean ms of its two turns, the kernel's device ms and
+    the byte bound."""
+    import numpy as np
+
+    from megahit_tpu_torch.core import kmerops
+    from megahit_tpu_torch.io.lib import build_lib
+
+    d = os.path.join(DATA, "k1_turns")
+    os.makedirs(d, exist_ok=True)
+    data = phase_data()
+    lib = build_lib([data["r1"]], [data["r2"]], [], [])
+    rng = np.random.default_rng(13)
+    bounds = {}
+    for name, k1, n, _ in K1_SHAPES:
+        w = kmerops.words_per_kmer(k1)
+        words = (lib.pool.window_padded(0, lib.pool.n_words + w + 1)
+                 if n is None else
+                 rng.integers(0, 2 ** 32, n, dtype=np.uint32))
+        np.save(os.path.join(d, f"{name}.npy"), words)
+        n_out = (-(-(len(words) - w) // 2048) * 2048) * 16
+        nbytes = len(words) * 4 + w * 4 * n_out
+        bounds[name] = (nbytes, nbytes / HBM_BYTES_PER_S * 1e3, n_out)
+    turns = []
+    for tag, tree in (("parent", parent), ("this", HERE), ("this", HERE),
+                      ("parent", parent)):
+        p = subprocess.run(
+            [sys.executable, "-c", _K1_CHILD, os.path.abspath(tree),
+             os.path.abspath(__file__), d],
+            capture_output=True, text=True)
+        line = next((x for x in p.stdout.splitlines()
+                     if x.startswith("K1 ")), None)
+        if p.returncode != 0 or line is None:
+            fail(f"[k1] {tag} turn ({tree}) failed:\n{p.stdout[-3000:]}"
+                 f"\n{p.stderr[-3000:]}")
+        r = json.loads(line[3:])
+        if not r["kernels"].startswith(os.path.abspath(tree)):
+            fail(f"[k1] {tag} turn imported {r['kernels']}, not {tree}'s")
+        turns.append((tag, r))
+        for name, _, _, _ in K1_SHAPES:
+            x = r[name]
+            log(f"[k1] {tag} turn {len(turns)} {name}: {x['ms']:.4f} ms a "
+                f"call ({bounds[name][1] / x['ms']:.1%} of bound); device "
+                "ops a call: " + ", ".join(
+                    f"{o[0][:40]} {o[1]:.4f} ms x{o[2]:g}"
+                    for o in x["ops"]))
+    rows = []
+    for name, k1, _, _ in K1_SHAPES:
+        if len({r[name]["digest"] for _, r in turns}) != 1:
+            fail(f"[k1] {name}: the trees' outputs differ")
+        nbytes, bound, n_out = bounds[name]
+        row = {"shape": name, "k1": k1, "offsets": n_out, "bytes": nbytes,
+               "bound_ms": bound}
+        for tag in ("parent", "this"):
+            ms = [r[name]["ms"] for t, r in turns if t == tag]
+            dev = [sum(o[1] / o[2] for o in r[name]["ops"]
+                       if "canon" in o[0]) for t, r in turns if t == tag]
+            row[tag] = {"ms": ms, "kernel_device_ms": dev,
+                        "ops": [sum(o[2] for o in r[name]["ops"])
+                                for t, r in turns if t == tag]}
+        rows.append(row)
+        log(f"[k1] {name} (k1={k1}, {n_out} offsets, bound {bound:.4f} ms,"
+            f" {nbytes} B): parent {np.mean(row['parent']['ms']):.4f} ms "
+            f"({bound / np.mean(row['parent']['ms']):.1%}), this "
+            f"{np.mean(row['this']['ms']):.4f} ms "
+            f"({bound / np.mean(row['this']['ms']):.1%}); kernel alone "
+            f"parent {np.mean(row['parent']['kernel_device_ms']):.4f}, this "
+            f"{np.mean(row['this']['kernel_device_ms']):.4f} ms")
+    log("[k1] " + json.dumps(rows))
+    return rows
 
 
 def _planes(torch, rng, n: int, kind: str):
@@ -1631,6 +1819,7 @@ def _community_kernels(torch, lib, tag="[14]", name="community"
         f"({packed.shape[0]} words): {n_out} offsets, max_abs_err {err1}, "
         f"{ms1:.3f} ms (plain {plain1:.3f} ms), bound {bound1:.3f} ms "
         f"({bytes1} B), {bound1 / ms1:.1%} of bound")
+    _k1_ops(torch, tag, packed, k1)
     del packed
 
     words, n_inv, n_chunks = counter._chunked_sorted_words(

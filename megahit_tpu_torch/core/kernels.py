@@ -164,7 +164,7 @@ _vp, _ll, _ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 # launch functions and their argument types, per source
 _LAUNCH = {
     "canonical_kmers": {"canonical_all_kmers_launch":
-                        [_vp, _vp, _ll, _ci, _vp]},
+                        [_vp, _ll, _vp, _ll, _ci, _vp]},
     "count_runs": {"count_sorted_runs_launch":
                    [ctypes.POINTER(_vp), _ci, _ci, _ci, _vp, _vp, _vp, _ll,
                     _vp],
@@ -237,10 +237,13 @@ def canonical_all_kmers(packed: torch.Tensor, k: int) -> torch.Tensor:
     Replaces megahit_tpu/core/pallas_kernels.py:105
     canonical_all_kmers_pallas (kernel body _canon_kernel). Bound on
     an H100 by bytes: the pool read once (4 B a word) plus W*4 B written
-    per base offset. One thread per (window start, offset) output
-    column: neighbouring threads take neighbouring window starts of one
-    phase, so the loads of the w+1 words and the W stores are coalesced,
-    and the 16 phases re-read each word from L2, not from memory."""
+    per base offset. One launch a call and no copy of the pool: the
+    kernel reads any contiguous pool (16-B aligned or not) and reads the
+    words past its end as zero. A block copies its window starts' words
+    into shared memory once (a bulk copy where the pool is aligned), a
+    thread takes V consecutive window starts and all 16 phases from
+    registers, and each key plane's V words of a phase go out as one
+    streaming 16-B store (8-B above W = 12)."""
     _check(packed, "packed")
     if not 1 <= k <= 255:
         raise ValueError(f"k must be in [1, 255], got {k}")
@@ -250,15 +253,12 @@ def canonical_all_kmers(packed: torch.Tensor, k: int) -> torch.Tensor:
     if packed.device.type == "cpu":
         return canonical_all_kmers_plain(packed, k)
     p = packed.shape[0]
-    q_pad = q_padded(p, k)
-    if q_pad + w > p:
-        packed = torch.cat([packed, packed.new_zeros(q_pad + w - p)])
-    n_out = q_pad * 16
+    n_out = q_padded(p, k) * 16
     out = torch.empty((w, n_out), dtype=torch.int32, device=packed.device)
     lib = _lib("canonical_kmers")
     stream = torch.cuda.current_stream(packed.device).cuda_stream
     err = lib.canonical_all_kmers_launch(
-        packed.data_ptr(), out.data_ptr(), n_out, k, stream)
+        packed.data_ptr(), p, out.data_ptr(), n_out, k, stream)
     canonical_all_kmers.launches += 1
     _raise_on(err, "canonical_all_kmers")
     return out

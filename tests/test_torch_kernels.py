@@ -57,6 +57,27 @@ def test_canonical_plain_wide_keys(k):
     np.testing.assert_array_equal(got, ref)
 
 
+@pytest.mark.parametrize("k", [22, 31, 144])
+@pytest.mark.parametrize("starts", [2048, 2049, 1])
+def test_canonical_plain_ragged_pools(k, starts):
+    """Pools of P = W + starts words: no padding (2048 window starts), a
+    2047-word pad (2049) and a single window start (P = W + 1), against
+    the jnp reference and (below W = 3) the Pallas kernel in interpret
+    mode. The CUDA kernel masks this tail itself."""
+    w = tk.words_per_kmer(k)
+    rng = np.random.default_rng(7 * k + starts)
+    packed = rng.integers(0, 2 ** 32, w + starts, dtype=np.uint32)
+    got = _u32(tkern.canonical_all_kmers(_i32(packed), k))
+    assert got.shape == (w, tkern.q_padded(len(packed), k) * 16)
+    ref = np.asarray(pk.canonical_all_kmers_reference(
+        jnp.asarray(packed), k))
+    np.testing.assert_array_equal(got, ref)
+    if w < 3:
+        pal = np.asarray(pk.canonical_all_kmers_pallas(
+            jnp.asarray(packed), k, interpret=True))
+        np.testing.assert_array_equal(got, pal)
+
+
 def test_phase_grouped_mask_matches():
     rng = np.random.default_rng(3)
     n = 5 * 2048 * 16 + 7 * 16

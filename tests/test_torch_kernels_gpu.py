@@ -43,15 +43,52 @@ def _sorted_cols(rng, n, dup, ninv):
     return hi[order], lo[order]
 
 
-@pytest.mark.parametrize("k", [15, 22, 32, 42, 56, 255])
-def test_canonical_kernel_matches_plain(k):
-    rng = np.random.default_rng(k)
-    packed = _i32(rng.integers(0, 2 ** 32, (1 << 16) + 37,
-                               dtype=np.uint32)).cuda()
+def _canonical_case(packed, k):
+    """One call of kernel 1 (one launch) against its plain version."""
     before = tkern.canonical_all_kmers.launches
     got = tkern.canonical_all_kmers(packed, k)
     assert tkern.canonical_all_kmers.launches == before + 1
     assert torch.equal(got, tkern.canonical_all_kmers_plain(packed, k))
+
+
+# every key width W = 1..16, each at k = 16W (16W - 1 at W = 16) and
+# 16W - 7
+_CANON_KS = [15, 22, 32, 42, 56, 255] + [
+    k for w in range(1, 17) for k in (min(16 * w, 255), 16 * w - 7)
+    if k not in (15, 22, 32, 42, 56, 255)]
+
+
+@pytest.mark.parametrize("k", _CANON_KS)
+def test_canonical_kernel_matches_plain(k):
+    rng = np.random.default_rng(k)
+    packed = _i32(rng.integers(0, 2 ** 32, (1 << 16) + 37,
+                               dtype=np.uint32)).cuda()
+    _canonical_case(packed, k)
+
+
+@pytest.mark.parametrize("k", [9, 22, 56, 144, 255])
+@pytest.mark.parametrize("starts", ["one", 1, 2047, 0])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_canonical_kernel_ragged_pools(k, starts, offset):
+    """Pools whose window starts P - W are 1, 2047 or 0 (mod 2048) (no
+    padding) or a single one (P = W + 1), starting on a 16-B boundary or
+    4 B past it (a view buf[1:P+1])."""
+    w = (k + 15) // 16
+    p = w + (1 if starts == "one" else 3 * 2048 + starts)
+    rng = np.random.default_rng(p + offset)
+    buf = _i32(rng.integers(0, 2 ** 32, p + offset, dtype=np.uint32)).cuda()
+    packed = buf[offset:]
+    assert (packed.data_ptr() % 16 == 0) == (offset == 0)
+    _canonical_case(packed, k)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+def test_canonical_kernel_count_chunk(offset):
+    """The count's 2^26-base chunk at k1 = 22: 2^22 + 3 words."""
+    p = (1 << 22) + 3
+    rng = np.random.default_rng(22)
+    buf = _i32(rng.integers(0, 2 ** 32, p + offset, dtype=np.uint32)).cuda()
+    _canonical_case(buf[offset:], 22)
 
 
 def _count_cols(n, dup, ninv, w, kind, offset):
@@ -122,6 +159,14 @@ def test_wrappers_refuse_bad_cuda_operands():
         ptrs, 1, n, 0, head.data_ptr(), counts.data_ptr(),
         scratch.data_ptr(), 4, torch.cuda.current_stream().cuda_stream)
     assert err == 1  # cudaErrorInvalidValue
+    # kernel 1's launch refuses an output too short for the pool's
+    # window starts
+    pool = torch.zeros(2048 + 3, dtype=torch.int32, device="cuda")
+    out = torch.empty((2, 2048 * 16), dtype=torch.int32, device="cuda")
+    err = tkern._lib("canonical_kmers").canonical_all_kmers_launch(
+        pool.data_ptr(), pool.shape[0], out.data_ptr(), out.shape[1], 22,
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 1
     # kernel 3 takes pairs of at most 32768 keys
     from megahit_tpu_torch.core import sortnet
 
