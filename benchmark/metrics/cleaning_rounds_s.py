@@ -1,0 +1,7 @@
+"""cleaning_rounds_s: mean seconds a job spends in the span(s) `assemble.k*.clean_output.cleaning_rounds`."""
+
+from metrics.spans import mean_span
+
+
+def read(run):
+    return mean_span(run, "assemble.k*.clean_output.cleaning_rounds")

@@ -1,0 +1,7 @@
+"""mercy_emit_s: mean seconds a job spends in the span(s) `first_graph.mercy.emit`."""
+
+from metrics.spans import mean_span
+
+
+def read(run):
+    return mean_span(run, "first_graph.mercy.emit")

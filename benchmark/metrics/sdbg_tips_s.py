@@ -1,0 +1,7 @@
+"""sdbg_tips_s: mean seconds a job spends in the span(s) `assemble.k*.clean_output.sdbg_tips`."""
+
+from metrics.spans import mean_span
+
+
+def read(run):
+    return mean_span(run, "assemble.k*.clean_output.sdbg_tips")

@@ -942,15 +942,17 @@ def _check_cleaning(tag: str, out: str) -> None:
 
 
 def _assemble_split(out: str) -> dict:
-    """The `assemble split` seconds of a run's log, summed over rungs."""
+    """The seconds of each rung's assemble split (the spans
+    `assemble.k<K>.clean_output.<step>` in a run's closing `phase ...
+    total` lines), summed over rungs."""
     split: dict[str, float] = {}
     with open(os.path.join(out, "log")) as fh:
         for line in fh:
-            m = re.search(r"assemble split: (.*)$", line)
+            m = re.search(r"phase assemble\.k\d+\.clean_output\.(\w+): "
+                          r"([0-9.]+)s total", line)
             if m:
-                for name, secs in re.findall(r"(\w+) ([0-9.]+)s",
-                                             m.group(1)):
-                    split[name] = split.get(name, 0.0) + float(secs)
+                split[m.group(1)] = split.get(m.group(1), 0.0) + float(
+                    m.group(2))
     return split
 
 
@@ -1035,10 +1037,13 @@ def phase_ladder(torch, data) -> dict:
     _check_cleaning("[8]", out)
     with open(os.path.join(out, "log")) as fh:
         text = fh.read()
-    log("[8] local low-depth passes on the device, by rung: " + ", ".join(
-        f"k={k} {n} in {t}s" for k, (n, t) in zip(rungs, re.findall(
-            r"local low depth: (\d+) passes on the device, ([0-9.]+)s",
-            text))))
+    prune = dict(re.findall(r"phase assemble\.k(\d+)\.clean_output\."
+                            r"prune_output: ([0-9.]+)s total", text))
+    log("[8] local low-depth passes on the device, by rung (the rung's "
+        "prune_output seconds): " + ", ".join(
+            f"k={k} {n} in {prune.get(k, '?')}s" for k, n in zip(
+                rungs, re.findall(
+                    r"local low depth: (\d+) passes on the device", text))))
     _check_contigs("[8]", out, data)
     if min(launches.values()) <= 0:
         fail(f"a kernel was not launched on the ladder: {launches}")
@@ -1061,18 +1066,6 @@ def phase_ladder(torch, data) -> dict:
     return launches
 
 
-class _SplitCatcher(logging.Handler):
-    """Keeps the seconds of the last `assemble split` log message."""
-
-    split: dict = {}
-
-    def emit(self, record):
-        msg = record.getMessage()
-        if msg.startswith("assemble split: "):
-            self.split = {n: float(v) for n, v in
-                          re.findall(r"(\w+) ([0-9.]+)s", msg)}
-
-
 def phase_engines(torch) -> None:
     """The isolate's k=21 graph assembled with each cleaning engine on
     cuda; every record must be equal."""
@@ -1083,9 +1076,8 @@ def phase_engines(torch) -> None:
     from megahit_tpu_torch.pipeline.assemble import (
         AssembleOptions, assemble,
     )
-    from megahit_tpu_torch.utils.log import get_logger
-
     from megahit_tpu_torch.utils.log import setup_logging
+    from megahit_tpu_torch.utils.timers import PhaseTimer
 
     setup_logging()  # console only: the last run's log file stays as is
     edges = os.path.join(DATA, "isolate_1pass", "tmp", "k21",
@@ -1094,8 +1086,6 @@ def phase_engines(torch) -> None:
         fail("[10] no k=21 edge file from [11]'s 1-pass run")
     z = np.load(edges)
     keys, counts = z["keys"], z["counts"]
-    catcher = _SplitCatcher()
-    get_logger().addHandler(catcher)
     on_device = assemble_device.use_device_cleaning
 
     def run(engine, prune, final):
@@ -1103,10 +1093,12 @@ def phase_engines(torch) -> None:
             on_device if engine == "device" else lambda device: False)
         try:
             sdbg = sdbg_from_edges(keys, counts, 22, device="cuda")
+            timer = PhaseTimer()
             t0 = time.monotonic()
-            res = assemble(sdbg, AssembleOptions(
-                min_standalone=300, prune_level=prune, careful_bubble=True,
-                is_final_round=final))
+            with timer.phase("a"):
+                res = assemble(sdbg, AssembleOptions(
+                    min_standalone=300, prune_level=prune,
+                    careful_bubble=True, is_final_round=final))
             torch.cuda.synchronize()
             wall = time.monotonic() - t0
         finally:
@@ -1118,28 +1110,26 @@ def phase_engines(torch) -> None:
 
         return ((fmt(res.contigs), fmt(res.final_contigs),
                  fmt(res.addi_contigs), fmt(res.bubbles), res.stats),
-                wall, dict(catcher.split))
+                wall, {n[2:]: v for n, v in timer.spans().items()
+                       if n.startswith("a.")})
 
-    try:
-        for prune in (2, 3):
-            for final in (False, True):
-                dev, dwall, dsplit = run("device", prune, final)
-                host, hwall, hsplit = run("host", prune, final)
-                names = ("contigs", "finals", "addi", "bubbles", "stats")
-                for name, a, b in zip(names, dev, host):
-                    if a != b:
-                        fail(f"[10] prune {prune} final {final}: {name} "
-                             "differ between the device and host engines")
-                log(f"[10] k=21 careful, prune {prune}, final {final}: "
-                    f"{len(dev[0])} contigs, {len(dev[1])} finals, "
-                    f"{len(dev[2])} addi, {len(dev[3])} bubbles equal; "
-                    f"device engine cleaning_rounds "
-                    f"{dsplit['cleaning_rounds']:.2f}s prune_output "
-                    f"{dsplit['prune_output']:.2f}s (assemble {dwall:.2f}s)"
-                    f" | host engine {hsplit['cleaning_rounds']:.2f}s, "
-                    f"{hsplit['prune_output']:.2f}s ({hwall:.2f}s)")
-    finally:
-        get_logger().removeHandler(catcher)
+    for prune in (2, 3):
+        for final in (False, True):
+            dev, dwall, dsplit = run("device", prune, final)
+            host, hwall, hsplit = run("host", prune, final)
+            names = ("contigs", "finals", "addi", "bubbles", "stats")
+            for name, a, b in zip(names, dev, host):
+                if a != b:
+                    fail(f"[10] prune {prune} final {final}: {name} "
+                         "differ between the device and host engines")
+            log(f"[10] k=21 careful, prune {prune}, final {final}: "
+                f"{len(dev[0])} contigs, {len(dev[1])} finals, "
+                f"{len(dev[2])} addi, {len(dev[3])} bubbles equal; "
+                f"device engine cleaning_rounds "
+                f"{dsplit['cleaning_rounds']:.2f}s prune_output "
+                f"{dsplit['prune_output']:.2f}s (assemble {dwall:.2f}s)"
+                f" | host engine {hsplit['cleaning_rounds']:.2f}s, "
+                f"{hsplit['prune_output']:.2f}s ({hwall:.2f}s)")
 
 
 def _contig_set(path: str) -> list:

@@ -70,7 +70,6 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -705,7 +704,6 @@ class DeviceCleaner:
 
         total = 0
         passes = 0
-        t0 = time.monotonic()
         while min_depth < KMAX_MUL:
             n, changed = self.remove_local_low_depth(
                 min_depth, min_len, local_width, local_ratio, permanent)
@@ -714,8 +712,8 @@ class DeviceCleaner:
                 break
             total += n
             min_depth *= 1.1
-        get_logger().info("local low depth: %d passes on the device, %.2fs",
-                          passes, time.monotonic() - t0)
+        get_logger().info("local low depth: %d passes on the device",
+                          passes)
         return total
 
     def remove_low_depth(self, min_depth: float) -> int:

@@ -34,7 +34,6 @@ Counterpart of megahit_tpu/graph/bucketed.py.
 from __future__ import annotations
 
 import os
-import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
@@ -44,6 +43,7 @@ import torch
 from ..core import kmerops
 from ..utils.device import resolve_device
 from ..utils.log import get_logger
+from ..utils.timers import count, span
 from .counter import KMAX_MUL, _chunks, as_pool
 from .sdbg import Sdbg, ShardedSdbgWriter, _make_sdbg, sdbg_from_edges
 
@@ -315,6 +315,41 @@ class BuildStats:
     round_ranges: list = field(default_factory=list)
 
 
+def _round_edges(srows: np.ndarray, w: int, k: int, unit: bool,
+                 mult_mode: str, min_count: int
+                 ) -> tuple[np.ndarray, np.ndarray]:
+    """A round's sorted rows deduplicated: (edges, multiplicities), the
+    groups below min_count dropped in the summing modes."""
+    keys = srows[:, :w]
+    head = np.empty(len(keys), dtype=bool)
+    head[0] = True
+    np.any(keys[1:] != keys[:-1], axis=1, out=head[1:])
+    tail = np.empty_like(head)
+    tail[:-1] = head[1:]
+    tail[-1] = True
+    edges = np.ascontiguousarray(keys[tail])
+    if unit:
+        # group sizes ARE the sums (every contribution is 1)
+        idx = np.flatnonzero(tail)
+        sums = np.empty(len(idx), dtype=np.int64)
+        sums[0] = idx[0] + 1
+        np.subtract(idx[1:], idx[:-1], out=sums[1:])
+    elif mult_mode == "max":
+        # mult is the LAST sort word, so the tail row is the max
+        return edges, np.minimum(srows[tail, w], KMAX_MUL).astype(np.int32)
+    else:
+        # group sums via cumulative-sum differences at tails
+        cs = np.cumsum(srows[:, w], dtype=np.int64)
+        sums = np.diff(np.concatenate([[0], cs[tail]]))
+    sums = _halve_palindromes(edges, sums, k)
+    mult = np.minimum(sums, KMAX_MUL).astype(np.int32)
+    if min_count > 1:
+        solid = sums >= min_count
+        edges = edges[solid]
+        mult = mult[solid]
+    return edges, mult
+
+
 def build_sdbg_bucketed(
     sources: list,
     k: int,
@@ -370,17 +405,19 @@ def build_sdbg_bucketed(
     row_words = w if unit else w + 1
 
     # ---- pass 1: spill the window multiset, bucketed by key prefix
-    t0 = time.monotonic()
     spill = SpillSet(spill_dir, "edges", row_words)
     total = 0
-    for src in sources:
-        if isinstance(src, PoolSource):
-            total += _spill_pool(spill, src, k, batch_windows, device,
-                                 unit=unit)
-        elif isinstance(src, EdgeSource):
-            total += _spill_edges(spill, src, k)
-        else:
-            raise TypeError(f"unknown source {type(src)}")
+    with span("spill") as spilled:
+        for src in sources:
+            if isinstance(src, PoolSource):
+                total += _spill_pool(spill, src, k, batch_windows, device,
+                                     unit=unit)
+            elif isinstance(src, EdgeSource):
+                total += _spill_edges(spill, src, k)
+            else:
+                raise TypeError(f"unknown source {type(src)}")
+        count("rows", total)
+        count("spill_bytes", total * row_words * 4)
     st.total_spilled_rows = total
     if total == 0:
         spill.cleanup()
@@ -392,7 +429,7 @@ def build_sdbg_bucketed(
     st.round_ranges = rounds
     log.info(
         "bucketed build k=%d: %d rows spilled in %.2fs, %d rounds "
-        "(budget %d)", k, total, time.monotonic() - t0, len(rounds),
+        "(budget %d)", k, total, spilled.seconds, len(rounds),
         budget_rows)
 
     # ---- pass 2: per-round sort + dedup; rounds are in prefix order,
@@ -406,56 +443,30 @@ def build_sdbg_bucketed(
     with ThreadPoolExecutor(max_workers=1) as ex:
         nxt_fut = ex.submit(spill.read_range, *rounds[0])
         for ri, (lo, hi) in enumerate(rounds):
-            t_round = time.monotonic()
-            rows = nxt_fut.result()
-            if ri + 1 < len(rounds):
-                nxt_fut = ex.submit(spill.read_range, *rounds[ri + 1])
-            st.max_round_rows = max(st.max_round_rows, len(rows))
-            if len(rows) == 0:
-                continue
-            t_sort = time.monotonic()
-            srows = _sort_rows(rows, device, mesh)
-            t_sort = time.monotonic() - t_sort
-            del rows
-            keys = srows[:, :w]
-            head = np.empty(len(keys), dtype=bool)
-            head[0] = True
-            np.any(keys[1:] != keys[:-1], axis=1, out=head[1:])
-            tail = np.empty_like(head)
-            tail[:-1] = head[1:]
-            tail[-1] = True
-            edges = np.ascontiguousarray(keys[tail])
-            if unit:
-                # group sizes ARE the sums (every contribution is 1)
-                idx = np.flatnonzero(tail)
-                sums = np.empty(len(idx), dtype=np.int64)
-                sums[0] = idx[0] + 1
-                np.subtract(idx[1:], idx[:-1], out=sums[1:])
-            elif mult_mode == "max":
-                # mult is the LAST sort word, so the tail row is the max
-                sums = None
-                mult = np.minimum(srows[tail, w], KMAX_MUL).astype(
-                    np.int32)
-            else:
-                # group sums via cumulative-sum differences at tails
-                cs = np.cumsum(srows[:, w], dtype=np.int64)
-                sums = np.diff(np.concatenate([[0], cs[tail]]))
-            if sums is not None:
-                sums = _halve_palindromes(edges, sums, k)
-                mult = np.minimum(sums, KMAX_MUL).astype(np.int32)
-                if min_count > 1:
-                    solid = sums >= min_count
-                    edges = edges[solid]
-                    mult = mult[solid]
-            del srows
-            if shard_writer is not None:
-                shard_writer.append(edges, mult)
-            all_keys.append(edges)
-            all_mult.append(mult)
+            with span("round") as rnd:
+                rows = nxt_fut.result()
+                if ri + 1 < len(rounds):
+                    nxt_fut = ex.submit(spill.read_range, *rounds[ri + 1])
+                st.max_round_rows = max(st.max_round_rows, len(rows))
+                count("rows", len(rows))
+                count("spill_bytes", rows.nbytes)
+                if len(rows) == 0:
+                    continue
+                with span("sort") as sort:
+                    srows = _sort_rows(rows, device, mesh)
+                del rows
+                edges, mult = _round_edges(srows, w, k, unit, mult_mode,
+                                           min_count)
+                n_rows = len(srows)
+                del srows
+                if shard_writer is not None:
+                    shard_writer.append(edges, mult)
+                all_keys.append(edges)
+                all_mult.append(mult)
             log.info("bucketed round %d/%d (buckets %d-%d): %d rows, "
                      "%d edges, %.2fs (sort %.2fs)", ri + 1, len(rounds),
-                     lo, hi - 1, len(keys), len(edges),
-                     time.monotonic() - t_round, t_sort)
+                     lo, hi - 1, n_rows, len(edges), rnd.seconds,
+                     sort.seconds)
     spill.cleanup()
     if shard_writer is not None:
         shard_writer.finalize()

@@ -6,8 +6,9 @@ same output routing (contigs / final standalone / addi / bubble_seq).
 
 The cleaning loop runs on the device engine (graph/assemble_device.py)
 when the graph is on the card and on the host engine (graph/cleaning.py)
-on the CPU; the two are byte-identical. Counterpart of
-megahit_tpu/pipeline/assemble.py.
+on the CPU; the two are byte-identical. Its four steps are child spans
+of the caller's open span: sdbg_tips, unitig_build, cleaning_rounds and
+prune_output. Counterpart of megahit_tpu/pipeline/assemble.py.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from ..graph.sdbg import Sdbg, remove_tips_sdbg
 from ..graph.unitig import build_unitig_graph
 from ..io.contig_io import ContigRecord
 from ..utils.log import get_logger
+from ..utils.timers import span
 
 
 @dataclass
@@ -110,32 +112,39 @@ class _HostEngine:
 
 
 def assemble(sdbg: Sdbg, opt: AssembleOptions) -> AssembleResult:
-    import time as _time
-
     log = get_logger()
-    _t0 = _time.monotonic()
-    _marks: list[tuple[str, float]] = []
-
-    def _mark(name: str) -> None:
-        _marks.append((name, _time.monotonic()))
     # thresholds use the megahit-level k (node length); sdbg.k is the
     # edge length = megahit k + 1
     k = sdbg.k - 1
     max_tip_len = opt.max_tip_len if opt.max_tip_len != -1 else 2 * k
-    min_depth = opt.min_depth
-    if min_depth <= 0:
-        min_depth = cleaning.infer_min_depth(sdbg)
-        log.info("min depth set to %.3f", min_depth)
+    with span("sdbg_tips"):
+        min_depth = opt.min_depth
+        if min_depth <= 0:
+            min_depth = cleaning.infer_min_depth(sdbg)
+            log.info("min depth set to %.3f", min_depth)
+        if max_tip_len > 0:
+            n = remove_tips_sdbg(sdbg, max_tip_len)
+            log.info("sdbg tips removed: %d", n)
 
-    if max_tip_len > 0:
-        n = remove_tips_sdbg(sdbg, max_tip_len)
-        log.info("sdbg tips removed: %d", n)
-    _mark("sdbg_tips")
+    with span("unitig_build"):
+        eng = _engine(sdbg, opt, log)
 
+    with span("cleaning_rounds"):
+        careful = 0.2 if opt.careful_bubble else None
+        bubble_records: list[tuple[str, float]] = []
+        _clean(eng, opt, k, max_tip_len, min_depth, careful,
+               bubble_records, log)
+
+    with span("prune_output"):
+        return _prune_output(eng, opt, k, max_tip_len, min_depth,
+                             bubble_records, log)
+
+
+def _engine(sdbg: Sdbg, opt: AssembleOptions, log):
+    """The unitig graph of `sdbg` in its cleaning engine: the device
+    engine for a graph on the card, else the host engine."""
     g = build_unitig_graph(sdbg)
     log.info("unitig graph size: %d", g.size)
-    _mark("unitig_build")
-
     use_device = assemble_device.use_device_cleaning(sdbg.device) \
         and g.size > 0
     if use_device:
@@ -163,10 +172,13 @@ def assemble(sdbg: Sdbg, opt: AssembleOptions) -> AssembleResult:
             else "")
     else:
         eng = _HostEngine(g)
+    return eng
 
-    careful = 0.2 if opt.careful_bubble else None
-    bubble_records: list[tuple[str, float]] = []
 
+def _clean(eng, opt: AssembleOptions, k: int, max_tip_len: int,
+           min_depth: float, careful, bubble_records, log) -> None:
+    """The cleaning rounds: at most opt.cleaning_rounds, until a round
+    changes nothing."""
     for rnd in range(1, opt.cleaning_rounds + 1):
         changed = False
         if rnd > 1:
@@ -213,8 +225,12 @@ def assemble(sdbg: Sdbg, opt: AssembleOptions) -> AssembleResult:
             log.info("excessive pruning removed: %d", n)
         if not changed:
             break
-    _mark("cleaning_rounds")
 
+
+def _prune_output(eng, opt: AssembleOptions, k: int, max_tip_len: int,
+                  min_depth: float, bubble_records, log) -> AssembleResult:
+    """Local low-depth iteration, the last complex bubbles and the
+    contigs of each output, with their stats."""
     contigs: list[ContigRecord] = []
     finals: list[ContigRecord] = []
     addi: list[ContigRecord] = []
@@ -248,14 +264,6 @@ def assemble(sdbg: Sdbg, opt: AssembleOptions) -> AssembleResult:
                 min_standalone=opt.min_standalone,
                 want_final=opt.output_standalone,
             )
-
-    _mark("prune_output")
-    prev = _t0
-    split = []
-    for name, t in _marks:
-        split.append(f"{name} {t - prev:.2f}s")
-        prev = t
-    log.info("assemble split: %s", ", ".join(split))
 
     bubble_contigs = [
         ContigRecord(packing.encode(s), k, 0, 0, m)

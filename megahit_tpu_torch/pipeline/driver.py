@@ -17,7 +17,6 @@ from __future__ import annotations
 
 import os
 import shutil
-import time
 
 import numpy as np
 
@@ -40,7 +39,7 @@ from ..pipeline.assemble import AssembleOptions, assemble
 from ..pipeline.options import Options
 from ..utils.device import resolve_device
 from ..utils.log import get_logger
-from ..utils.timers import PhaseTimer, max_rss_mb
+from ..utils.timers import PhaseTimer, Spans, max_rss_mb
 
 
 class EarlyTerminate(Exception):
@@ -52,11 +51,11 @@ class Checkpoint:
     """Stage counter persisted as "<n> done" lines
     (reference src/megahit:250-280)."""
 
-    def __init__(self, path: str, resume: bool):
+    def __init__(self, path: str, resume: bool, timer: PhaseTimer):
         self.path = path
         self.idx = 0
         self.done_upto = -1
-        self.timer = PhaseTimer()
+        self.timer = timer
         if resume and os.path.exists(path):
             with open(path) as fh:
                 for line in fh:
@@ -72,14 +71,12 @@ class Checkpoint:
             log.info("skipping checkpointed stage %d (%s)",
                      idx, fn.__name__)
             return None
-        t0 = time.monotonic()
-        with self.timer.phase(fn.__name__):
+        with self.timer.phase(fn.__name__) as stage:
             out = fn(*args, **kwargs)
         log.info(
             "stage %d (%s%s): %.2fs, maxrss %.0f MB",
             idx, fn.__name__,
-            "".join(f" {a}" for a in args), time.monotonic() - t0,
-            max_rss_mb(),
+            "".join(f" {a}" for a in args), stage.seconds, max_rss_mb(),
         )
         with open(self.path, "a") as fh:
             fh.write(f"{idx} done\n")
@@ -95,7 +92,7 @@ class Pipeline:
         self.tmp_dir = self._resolve_tmp_dir(opt)
         self.contig_dir = os.path.join(opt.out_dir, "intermediate_contigs")
         self.lib: SequenceLib | None = None
-        self.timer = PhaseTimer()  # sub-stage spans (checkpoint-free)
+        self.timer: PhaseTimer | None = None  # the job's spans (run())
 
     # ---------------- paths
 
@@ -504,11 +501,22 @@ class Pipeline:
 
     # ---------------- main
 
-    def run(self) -> dict[str, float]:
-        """Run (or resume) the pipeline; returns the per-phase wall
-        seconds it logged."""
+    def run(self) -> Spans:
+        """Run (or resume) the pipeline as one job under one span
+        recorder; returns the job's spans (name -> wall seconds summed
+        over the job, with .records and .counters)."""
+        self.timer = PhaseTimer()
+        with self.timer.phase("job") as job:
+            self._run_stages()
+        spans = self.timer.spans()
+        # per-phase span summary (reference xinfo timer lines)
+        for name, dt in sorted(spans.items(), key=lambda x: -x[1]):
+            self.log.info("phase %s: %.2fs total", name, dt)
+        self.log.info("ALL DONE. Time elapsed: %.1f s", job.seconds)
+        return spans
+
+    def _run_stages(self) -> None:
         o = self.opt
-        t0 = time.time()
         os.makedirs(self.out_dir, exist_ok=True)
         opt_path = os.path.join(self.out_dir, "options.json")
         if o.continue_mode and os.path.exists(opt_path):
@@ -528,7 +536,7 @@ class Pipeline:
 
         set_num_threads(o.num_cpu_threads)
         cp = Checkpoint(os.path.join(self.out_dir, "checkpoints.txt"),
-                        resume=o.continue_mode)
+                        resume=o.continue_mode, timer=self.timer)
 
         cp.run(self.stage_build_lib)
         max_len = self._load_lib().max_len
@@ -557,10 +565,3 @@ class Pipeline:
         if not o.keep_tmp_files and os.path.exists(self.tmp_dir):
             shutil.rmtree(self.tmp_dir)
         open(os.path.join(self.out_dir, "done"), "w").close()
-        # per-phase span summary (reference xinfo timer lines)
-        spans = dict(cp.timer.phases)
-        spans.update(self.timer.phases)
-        for name, dt in sorted(spans.items(), key=lambda x: -x[1]):
-            self.log.info("phase %s: %.2fs total", name, dt)
-        self.log.info("ALL DONE. Time elapsed: %.1f s", time.time() - t0)
-        return spans
