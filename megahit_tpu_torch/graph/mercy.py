@@ -8,10 +8,12 @@ positions between the latest in-only position `a` and the next flagged
 position `b` with status(b) = out-only donates the read's (k+1)-mers at
 windows [a, b) as multiplicity-1 "mercy" edges.
 
-k-mer extraction runs as torch ops on the given device; the membership
-queries and the gap state machine run on host (numpy + the native seed
-scan). Its steps are child spans of the caller's open span: candidates
-(with rare keys at k <= 31), node_table, flag_scan and emit.
+k-mer extraction runs as torch ops on the given device, and so does the
+node table at k <= 31 (the distinct k-prefixes and k-suffixes of the
+solid edges, downloaded once as host u64); the membership queries and
+the gap state machine run on host (numpy + the native seed scan). Its
+steps are child spans of the caller's open span: candidates (with rare
+keys at k <= 31), node_table, flag_scan and emit.
 Counterpart of megahit_tpu/graph/mercy.py.
 """
 
@@ -25,6 +27,8 @@ from ..utils.device import resolve_device
 from ..utils.log import get_logger
 from ..utils.timers import count, span
 from .counter import window_valid_mask
+
+_SIGN64 = -(1 << 63)  # the int64 whose bits are 1 << 63
 
 
 def _neighbor_flags(packed: torch.Tensor, solid_keys: torch.Tensor,
@@ -47,23 +51,38 @@ def _neighbor_flags(packed: torch.Tensor, solid_keys: torch.Tensor,
     return has_in, has_out
 
 
-def _node_sets_u64(solid_keys: np.ndarray, k1: int):
+def _node_sets(solid_keys: np.ndarray, k1: int, device):
     """Union table of the k-prefixes and k-suffixes of both strands of
-    the solid edge set, with a per-row 2-bit flag (1 = prefix: some
-    solid edge starts with it; 2 = suffix: some solid edge ends with
-    it). One binary search per query, no canonicalization."""
+    the solid edge set, built with torch ops on `device`, with a per-row
+    2-bit flag (1 = prefix: some solid edge starts with it; 2 = suffix:
+    some solid edge ends with it). Returned to the host as u64 values
+    ((word0 << 32) | word1, ascending) and uint8 flags, for one binary
+    search per query with no canonicalization.
+
+    A k-mer with k <= 31 leaves the low 2 bits of its u64 value zero, so
+    each row carries its side there (0 prefix, 1 suffix) and one
+    torch.unique sorts and dedupes both sides at once: a node is then
+    one row or a prefix row followed by a suffix row. The top bit is
+    flipped for the sort (pack_sort_keys: int64 sorts by sign) and
+    flipped back before the download."""
     k = k1 - 1
-    keys = np.asarray(solid_keys, dtype=np.uint32)
-    both = np.concatenate([keys, kmerops.revcomp_kmers(keys, k1)], axis=0)
-    prefixes = kmerops.mask_tail(both, k)
-    suffixes = kmerops.mask_tail(kmerops.drop_first_base(both, k1), k)
-    p = np.unique(kmerops.keys_to_u64(prefixes, k))
-    s = np.unique(kmerops.keys_to_u64(suffixes, k))
-    table = np.unique(np.concatenate([p, s]))
-    flags = np.zeros(len(table), dtype=np.uint8)
-    flags[np.searchsorted(table, p)] |= 1
-    flags[np.searchsorted(table, s)] |= 2
-    return table, flags
+    keys = kmerops.to_torch(solid_keys, device)
+    both = torch.cat([keys, kmerops.revcomp_kmers(keys, k1)])
+    del keys
+    prefixes = kmerops.pack_sort_keys(kmerops.mask_tail(both, k).unbind(1))
+    suffixes = kmerops.pack_sort_keys(kmerops.mask_tail(
+        kmerops.drop_first_base(both, k1), k).unbind(1))
+    del both
+    rows = torch.unique(torch.cat([prefixes[0], suffixes[0] | 1]))
+    del prefixes, suffixes
+    node = rows & ~3
+    bit = (rows & 1) + 1
+    # a suffix row right after its node's prefix row adds flag 2 to it
+    bit[:-1] |= torch.where(node[1:] == node[:-1], bit[1:], 0)
+    first = torch.ones_like(rows, dtype=torch.bool)
+    first[1:] = node[1:] != node[:-1]
+    table = (node[first] ^ _SIGN64).cpu().numpy().view(np.uint64)
+    return table, bit[first].to(torch.uint8).cpu().numpy()
 
 
 def _flags_mt(table: np.ndarray, flags: np.ndarray, q: np.ndarray,
@@ -117,7 +136,7 @@ def _chunk_windows(packed_np, n_bases, w, chunk_bases):
 def _flags_host_u64(packed, packed_np, table, tflags, k, k1, n_bases,
                     chunk_bases):
     """k <= 31: dense k-mers on the device -> host u64 -> membership in
-    the prefix/suffix node sets (`_node_sets_u64`)."""
+    the prefix/suffix node sets (`_node_sets`)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from ..utils.threads import num_threads
@@ -226,12 +245,12 @@ def find_mercy_edges(
 
 def _node_table(solid_keys: np.ndarray, k1: int, device):
     """The table the flag scan looks nodes up in, under the span
-    node_table: at k <= 31 the prefix/suffix node sets on the host
-    (`_node_sets_u64`), else the solid set itself, searched on the
-    device."""
+    node_table: at k <= 31 the prefix/suffix node sets, built on
+    `device` and downloaded as host u64 (`_node_sets`), else the solid
+    set itself, uploaded and searched on the device."""
     with span("node_table"):
         if k1 - 1 <= 31:
-            return _node_sets_u64(solid_keys, k1)
+            return _node_sets(solid_keys, k1, device)
         return kmerops.to_torch(solid_keys, device), None
 
 
