@@ -24,6 +24,13 @@ multiset only ever exists on disk. The spill pass is double-buffered
 (host partition+write overlaps the next chunk's extraction) and round
 reads prefetch under the sorts.
 
+Spans (utils/timers.py), on the calling thread: `spill`, with one
+`extract` a chunk (extraction on the device, download, reverse
+complements, row fill) and `write_wait` (blocked on the writer thread),
+and one `round` a round, with `read_wait` (the prefetched spill read),
+`sort` and `dedup`; counters `rows` and `spill_bytes` on `spill` and on
+each `round`.
+
 With shard_dir, each round's edges also stream to the sharded graph
 files (graph/sdbg.py ShardedSdbgWriter). With a mesh, each round is one
 sample sort over the mesh's shards (parallel/shuffle.py).
@@ -204,31 +211,34 @@ def _spill_pool(spill: SpillSet, src: PoolSource, k: int,
     pending = None
     with ThreadPoolExecutor(max_workers=1) as ex:
         for lo, words, vm in _chunks(pool, src.starts, k, chunk):
-            fwd = kmerops.to_numpy(kmerops.extract_all_kmers(
-                kmerops.to_torch(words, device), k))[vm]
-            rc = np_revcomp(fwd, k)
-            n = len(fwd)
-            if unit:
-                # every window contributes multiplicity 1: no mult word
-                # is spilled (dedup counts group sizes instead)
-                rows = np.empty((2 * n, w), np.uint32)
-                rows[:n] = fwd
-                rows[n:] = rc
-            else:
-                posv = np.flatnonzero(vm) + lo
-                mm = mults[np.searchsorted(src.starts, posv,
-                                           side="right") - 1]
-                rows = np.empty((2 * n, w + 1), np.uint32)
-                rows[:n, :w] = fwd
-                rows[n:, :w] = rc
-                rows[:n, w] = mm
-                rows[n:, w] = mm
+            with span("extract"):
+                fwd = kmerops.to_numpy(kmerops.extract_all_kmers(
+                    kmerops.to_torch(words, device), k))[vm]
+                rc = np_revcomp(fwd, k)
+                n = len(fwd)
+                if unit:
+                    # every window contributes multiplicity 1: no mult
+                    # word is spilled (dedup counts group sizes instead)
+                    rows = np.empty((2 * n, w), np.uint32)
+                    rows[:n] = fwd
+                    rows[n:] = rc
+                else:
+                    posv = np.flatnonzero(vm) + lo
+                    mm = mults[np.searchsorted(src.starts, posv,
+                                               side="right") - 1]
+                    rows = np.empty((2 * n, w + 1), np.uint32)
+                    rows[:n, :w] = fwd
+                    rows[n:, :w] = rc
+                    rows[:n, w] = mm
+                    rows[n:, w] = mm
             if pending is not None:
-                pending.result()
+                with span("write_wait"):
+                    pending.result()
             pending = ex.submit(spill.append, rows)
             total += len(rows)
         if pending is not None:
-            pending.result()
+            with span("write_wait"):
+                pending.result()
     return total
 
 
@@ -444,7 +454,8 @@ def build_sdbg_bucketed(
         nxt_fut = ex.submit(spill.read_range, *rounds[0])
         for ri, (lo, hi) in enumerate(rounds):
             with span("round") as rnd:
-                rows = nxt_fut.result()
+                with span("read_wait"):
+                    rows = nxt_fut.result()
                 if ri + 1 < len(rounds):
                     nxt_fut = ex.submit(spill.read_range, *rounds[ri + 1])
                 st.max_round_rows = max(st.max_round_rows, len(rows))
@@ -455,8 +466,9 @@ def build_sdbg_bucketed(
                 with span("sort") as sort:
                     srows = _sort_rows(rows, device, mesh)
                 del rows
-                edges, mult = _round_edges(srows, w, k, unit, mult_mode,
-                                           min_count)
+                with span("dedup"):
+                    edges, mult = _round_edges(srows, w, k, unit,
+                                               mult_mode, min_count)
                 n_rows = len(srows)
                 del srows
                 if shard_writer is not None:

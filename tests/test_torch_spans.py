@@ -3,7 +3,8 @@ nest under their parents with one job id, counters sum, nothing is
 recorded without a recorder or on a worker thread, spans share the
 wall clock with torch.profiler's events, and a CPU run of the pipeline
 returns the spans and counters inside mercy and cleaning, whose
-children cover their parents."""
+children cover their parents, and inside the 1-pass build's spill and
+rounds, whose children lie within theirs."""
 
 import logging
 import pathlib
@@ -19,7 +20,7 @@ import torch
 import torch_test_env  # noqa: F401
 from megahit_tpu_torch.__main__ import make_parser, options_from_args
 from megahit_tpu_torch.core import packing
-from megahit_tpu_torch.graph import counter, mercy
+from megahit_tpu_torch.graph import bucketed, counter, mercy
 from megahit_tpu_torch.pipeline.driver import Pipeline
 from megahit_tpu_torch.utils.log import get_logger, setup_logging
 from megahit_tpu_torch.utils.timers import PhaseTimer, count, span
@@ -287,3 +288,48 @@ def test_out_of_core_rounds_are_spans(community, tmp_path):
     assert len(lines) == len(rounds)
     assert f"{MERCY}.flag_scan" in spans  # the dense path, no candidates
     assert f"{MERCY}.candidates" not in spans
+
+
+def test_spill_and_round_children(community, tmp_path, monkeypatch):
+    """The children of the 1-pass build's spill (one `extract` a chunk,
+    `write_wait`) and of each round (one `read_wait` and one `dedup`
+    beside its `sort`): each under its parent, inside its parent's
+    interval, and together no longer than it."""
+    chunks = []
+    orig = bucketed._chunks
+
+    def spy(*args):
+        for chunk in orig(*args):
+            chunks.append(chunk[0])
+            yield chunk
+
+    monkeypatch.setattr(bucketed, "_chunks", spy)
+    spans, _ = _run(community + ["--k-list", "21", "--kmin-1pass",
+                                 "-m", "12000000"], tmp_path / "out")
+    build = "first_graph.1pass_build"
+
+    def kids_of(parent, names):
+        """parent's records' children named `names`, by parent."""
+        out = []
+        for up in [r for r in spans.records if r.name == parent]:
+            kids = [r for r in spans.records
+                    if r.parent == parent and r.name in names
+                    and up.start_ns <= r.start_ns and r.end_ns <= up.end_ns]
+            assert sum(k.seconds for k in kids) <= up.seconds
+            assert all(a.end_ns <= b.start_ns
+                       for a, b in zip(kids, kids[1:]))
+            out.append([k.name.rsplit(".", 1)[1] for k in kids])
+        return out
+
+    spill = f"{build}.spill"
+    (spill_kids,) = kids_of(spill, {f"{spill}.extract",
+                                    f"{spill}.write_wait"})
+    assert len(chunks) >= 2
+    assert spill_kids.count("extract") == len(chunks)
+    assert spill_kids.count("write_wait") == len(chunks)
+    rnd = f"{build}.round"
+    rounds = kids_of(rnd, {f"{rnd}.{c}" for c in
+                           ("read_wait", "sort", "dedup")})
+    assert len(rounds) >= 8
+    assert all(r == ["read_wait", "sort", "dedup"] for r in rounds)
+
