@@ -6,10 +6,10 @@ a fixed budget (reference AdjustMemory + the Lv1-bucket-round loop,
 src/sorting/base_engine.cpp:14-141,176-281).
 
 Design:
-  * ONE streaming pass extracts window rows (key words + multiplicity
-    word) chunk by chunk on the device and partitions them on the host
-    into 256 spill files by the top 8 bits of the key (order-preserving
-    prefix buckets).
+  * ONE streaming pass makes the window rows (key words + multiplicity
+    word) of each chunk on the device and puts them there in a stable
+    order of the top 8 bits of the key (256 order-preserving prefix
+    buckets); the host writes each bucket's slice to its spill file.
   * Rounds = runs of consecutive buckets whose total row count fits the
     budget (reference Lv1FindEndBuckets). Keys equal each other only
     within one bucket, so rounds never split a key group.
@@ -21,15 +21,15 @@ Design:
 
 Working-set memory is bounded by the round budget; the full window
 multiset only ever exists on disk. The spill pass is double-buffered
-(host partition+write overlaps the next chunk's extraction) and round
+(the host writes of chunk i overlap chunk i+1's device work) and round
 reads prefetch under the sorts.
 
 Spans (utils/timers.py), on the calling thread: `spill`, with one
-`extract` a chunk (extraction on the device, download, reverse
-complements, row fill) and `write_wait` (blocked on the writer thread),
-and one `round` a round, with `read_wait` (the prefetched spill read),
-`sort` and `dedup`; counters `rows` and `spill_bytes` on `spill` and on
-each `round`.
+`extract` a chunk (on the device: extraction or upload, validity mask,
+reverse complements, rows and their bucket order; the download) and
+`write_wait` (blocked on the writer thread), and one `round` a round,
+with `read_wait` (the prefetched spill read), `sort` and `dedup`;
+counters `rows` and `spill_bytes` on `spill` and on each `round`.
 
 With shard_dir, each round's edges also stream to the sharded graph
 files (graph/sdbg.py ShardedSdbgWriter). With a mesh, each round is one
@@ -99,19 +99,21 @@ class SpillSet:
             fh.close()
         self._fhs.clear()
 
-    def append(self, rows: np.ndarray) -> None:
-        """rows: (N, row_words) uint32; bucketed by rows[:,0] >> 24."""
-        if not len(rows):
-            return
-        b8 = (rows[:, 0] >> np.uint32(24)).astype(np.uint8)
-        order = np.argsort(b8, kind="stable")  # numpy radix on u8
-        rows = rows[order]
-        sizes = np.bincount(b8, minlength=N_BUCKETS).astype(np.int64)
-        self.counts += sizes
-        offs = np.zeros(N_BUCKETS + 1, dtype=np.int64)
-        np.cumsum(sizes, out=offs[1:])
-        for i in np.nonzero(sizes)[0]:
-            self._fh(i).write(rows[offs[i]:offs[i + 1]].tobytes())
+    def append(self, blocks: list[tuple[np.ndarray, np.ndarray]]
+               ) -> None:
+        """blocks: (rows, sizes) pairs, each block's (N, row_words)
+        uint32 rows in bucket order (by rows[:,0] >> 24), the first
+        sizes[0] rows bucket 0's and so on. Each bucket's rows of every
+        block are appended to its file in block order, in one write (a
+        write call costs more than its bytes on some file systems)."""
+        sizes = np.array([s for _, s in blocks], dtype=np.int64
+                         ).reshape(-1, N_BUCKETS)
+        offs = np.zeros((len(blocks), N_BUCKETS + 1), dtype=np.int64)
+        np.cumsum(sizes, axis=1, out=offs[:, 1:])
+        self.counts += sizes.sum(axis=0)
+        for b in np.flatnonzero(sizes.sum(axis=0)):
+            self._fh(b).write(b"".join(
+                rows[o[b]:o[b + 1]] for (rows, _), o in zip(blocks, offs)))
 
     def read_range(self, lo: int, hi: int) -> np.ndarray:
         """All rows of buckets [lo, hi) (file append order)."""
@@ -190,72 +192,135 @@ class EdgeSource:
     counts: np.ndarray
 
 
-def _spill_pool(spill: SpillSet, src: PoolSource, k: int,
-                batch_windows: int, device, unit: bool = False) -> int:
-    """Stream-extract all window rows of a pool into the spill set.
+# rows a step of the partition: a step's temporaries (int64 words,
+# reverse complements, the sort's keys and order) scale with it, not
+# with the chunk
+_STEP = 1 << 19
 
-    Fully windowed: only one chunk of packed words / validity / mults
-    is resident, so the pass handles pools larger than RAM. The windows
-    of a chunk are extracted on `device`; masking, reverse complements
-    and the spill writes run on the host. Returns total rows spilled."""
-    w = kmerops.words_per_kmer(k)
-    if int(src.starts[-1]) < k:
-        return 0
-    pool = as_pool(src.flat_codes)
-    mults = np.asarray(src.mults, dtype=np.int32)
-    chunk = max(1 << 16, (batch_windows + 15) & ~15)
+
+def _bucketed_rows(fwd: torch.Tensor, mult: torch.Tensor | None, k: int
+                   ) -> list[tuple[np.ndarray, np.ndarray]]:
+    """The spill rows of keys `fwd` ((n, w) kmerops words on the device)
+    and, where `mult` ((n,) int32) is given, of their multiplicity word:
+    the n keys' rows, then their reverse complements', as host uint32
+    words. In steps of _STEP rows, each put in a stable order of its
+    bucket on the device and downloaded into one host array. Returns
+    (step rows, the step's 256 bucket sizes) in row order: appended in
+    that order, every bucket file gets its rows in the order of all 2n,
+    as one stable partition would give."""
+    n, w = fwd.shape
+    out = np.empty((2 * n, w + (mult is not None)), np.uint32)
+    dst = torch.from_numpy(out.view(np.int32))
+    steps, sizes = [], []
+    for at in [*range(0, n, _STEP), *range(n, 2 * n, _STEP)]:
+        s = at % n
+        keys = fwd[s:s + _STEP]
+        if at >= n:
+            keys = kmerops.revcomp_kmers(keys, k)
+        b8 = (keys[:, 0] >> 24).to(torch.uint8)
+        order = torch.sort(b8, stable=True)[1]
+        rows = kmerops.i32_bits(keys)
+        if mult is not None:
+            rows = torch.cat([rows, mult[s:s + _STEP, None]], 1)
+        dst[at:at + len(rows)].copy_(rows[order])
+        steps.append(out[at:at + len(rows)])
+        sizes.append(torch.bincount(b8, minlength=N_BUCKETS))
+    if not steps:
+        return []
+    return list(zip(steps, torch.stack(sizes).cpu().numpy()))
+
+
+def _spill_chunks(spill: SpillSet, chunks) -> int:
+    """Append each chunk's steps (from the iterator `chunks`, which makes
+    them on the device) on a writer thread, so that a chunk's writes
+    overlap the next chunk's device work; SpillSet state is touched only
+    by that thread during the loop. Returns the rows spilled."""
     total = 0
-    # double-buffered: the host partition+write of chunk i overlaps the
-    # extraction of chunk i+1; SpillSet state is touched only by the
-    # single writer thread during the loop
     pending = None
     with ThreadPoolExecutor(max_workers=1) as ex:
-        for lo, words, vm in _chunks(pool, src.starts, k, chunk):
-            with span("extract"):
-                fwd = kmerops.to_numpy(kmerops.extract_all_kmers(
-                    kmerops.to_torch(words, device), k))[vm]
-                rc = np_revcomp(fwd, k)
-                n = len(fwd)
-                if unit:
-                    # every window contributes multiplicity 1: no mult
-                    # word is spilled (dedup counts group sizes instead)
-                    rows = np.empty((2 * n, w), np.uint32)
-                    rows[:n] = fwd
-                    rows[n:] = rc
-                else:
-                    posv = np.flatnonzero(vm) + lo
-                    mm = mults[np.searchsorted(src.starts, posv,
-                                               side="right") - 1]
-                    rows = np.empty((2 * n, w + 1), np.uint32)
-                    rows[:n, :w] = fwd
-                    rows[n:, :w] = rc
-                    rows[:n, w] = mm
-                    rows[n:, w] = mm
+        for steps in chunks:
             if pending is not None:
                 with span("write_wait"):
                     pending.result()
-            pending = ex.submit(spill.append, rows)
-            total += len(rows)
+            pending = ex.submit(spill.append, steps)
+            total += sum(len(rows) for rows, _ in steps)
         if pending is not None:
             with span("write_wait"):
                 pending.result()
     return total
 
 
-def _spill_edges(spill: SpillSet, src: EdgeSource, k: int) -> int:
-    keys = np.asarray(src.keys, dtype=np.uint32)
-    if not len(keys):
+def _chunk_rows(batch_windows: int) -> int:
+    """Windows (or edges) a chunk of the spill: a multiple of 16 (a
+    whole packed word), at least 2^16."""
+    return max(1 << 16, (batch_windows + 15) & ~15)
+
+
+def _pool_keys(words: np.ndarray, vm: np.ndarray, lo: int, k: int,
+               device, starts: torch.Tensor | None,
+               mults: torch.Tensor | None
+               ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """A pool chunk's valid windows (validity `vm`) as keys on `device`
+    and, in the counted layout (`starts` and `mults` on the device),
+    each window's sequence multiplicity."""
+    valid = torch.from_numpy(vm).to(device)
+    fwd = kmerops.extract_all_kmers(kmerops.to_torch(words, device),
+                                    k)[valid]
+    if mults is None:
+        return fwd, None
+    pos = torch.nonzero(valid).squeeze(1) + lo
+    return fwd, mults[torch.searchsorted(starts, pos, right=True) - 1]
+
+
+def _spill_pool(spill: SpillSet, src: PoolSource, k: int,
+                batch_windows: int, device, unit: bool = False) -> int:
+    """Stream-extract all window rows of a pool into the spill set.
+
+    Fully windowed: only one chunk of packed words / validity / mults
+    is resident, so the pass handles pools larger than RAM. Returns
+    total rows spilled."""
+    if int(src.starts[-1]) < k:
         return 0
+    # the unit layout spills no multiplicity word: every window
+    # contributes 1 (dedup counts group sizes instead)
+    starts = mults = None
+    if not unit:
+        starts = torch.from_numpy(
+            np.ascontiguousarray(src.starts, dtype=np.int64)).to(device)
+        mults = torch.from_numpy(
+            np.ascontiguousarray(src.mults, dtype=np.int32)).to(device)
+
+    def chunks():
+        for lo, words, vm in _chunks(as_pool(src.flat_codes), src.starts,
+                                     k, _chunk_rows(batch_windows)):
+            with span("extract"):
+                steps = _bucketed_rows(
+                    *_pool_keys(words, vm, lo, k, device, starts, mults),
+                    k)
+            yield steps
+
+    return _spill_chunks(spill, chunks())
+
+
+def _spill_edges(spill: SpillSet, src: EdgeSource, k: int,
+                 batch_windows: int, device) -> int:
+    """Spill an EdgeSource's rows (each key and its reverse complement,
+    with the key's count as the multiplicity word), uploaded in chunks.
+    Returns total rows spilled."""
+    keys = np.asarray(src.keys, dtype=np.uint32)
     counts = np.asarray(src.counts, dtype=np.uint32)
-    w = keys.shape[1]
-    rc = np_revcomp(keys, k)
-    rows = np.empty((2 * len(keys), w + 1), np.uint32)
-    rows[: len(keys), :w] = keys
-    rows[len(keys):, :w] = rc
-    rows[: len(keys), w] = counts
-    rows[len(keys):, w] = counts
-    spill.append(rows)
-    return len(rows)
+    chunk = _chunk_rows(batch_windows)
+
+    def chunks():
+        for s in range(0, len(keys), chunk):
+            with span("extract"):
+                steps = _bucketed_rows(
+                    kmerops.to_torch(keys[s:s + chunk], device),
+                    torch.from_numpy(counts[s:s + chunk].view(np.int32))
+                    .to(device), k)
+            yield steps
+
+    return _spill_chunks(spill, chunks())
 
 
 # ---------------------------------------------------------------------------
@@ -423,7 +488,8 @@ def build_sdbg_bucketed(
                 total += _spill_pool(spill, src, k, batch_windows, device,
                                      unit=unit)
             elif isinstance(src, EdgeSource):
-                total += _spill_edges(spill, src, k)
+                total += _spill_edges(spill, src, k, batch_windows,
+                                      device)
             else:
                 raise TypeError(f"unknown source {type(src)}")
         count("rows", total)

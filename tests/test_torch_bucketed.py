@@ -149,13 +149,16 @@ def _lexsorted(r):
 
 
 def test_spill_roundtrip(tmp_path):
-    """Appends land in their 8-bit prefix file, counted; a range reads
-    back exactly its buckets' rows, in bucket order."""
+    """Appends of rows in bucket order land in their 8-bit prefix file,
+    counted; a range reads back exactly its buckets' rows, in bucket
+    order."""
     spill = bk.SpillSet(str(tmp_path), "t", 3)
     allrows = []
     for _ in range(5):
         rows = RNG.integers(0, 2**32, (2000, 3)).astype(np.uint32)
-        spill.append(rows)
+        b8 = rows[:, 0] >> np.uint32(24)
+        spill.append([(rows[np.argsort(b8, kind="stable")],
+                       np.bincount(b8, minlength=bk.N_BUCKETS))])
         allrows.append(rows)
     allrows = np.concatenate(allrows)
     pref = (allrows[:, 0] >> np.uint32(24)).astype(np.int64)
