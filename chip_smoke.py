@@ -62,8 +62,9 @@ Phases, each printing its own lines:
    unitig_build, cleaning_rounds, prune_output) is printed summed over
    its rungs, cuda beside cpu;
 10. (run after [11]) the cleaning engines: the isolate's k=21 graph
-   (from [11]'s edge file: its solid edges and mercy) assembled on cuda with the device engine and with the host
-   engine, with careful bubbles at prune level 2 and 3, final round and
+   (from [11]'s edge file: its solid edges and mercy) assembled on cuda by
+   the card's route (device engine) and, with utils.device.graph_on_card
+   patched to False, by the host route (host engine), with careful bubbles at prune level 2 and 3, final round and
    not: contigs, finals, addi, bubble records and stats must be equal;
    each engine's cleaning_rounds and prune_output seconds;
 11. the out-of-core build: the isolate with --k-list 21 --kmin-1pass
@@ -87,8 +88,7 @@ Phases, each printing its own lines:
    multiplicities); the k=21 graph (~0.5M rows) through
    save_sharded(rows_per_shard=2^18) (at least 2 shards), load_sharded
    and load_sharded_rows over two bucket ranges, equal; checkcpu and
-   checknative each print 1; the link probe's milliseconds (it must keep
-   the device engine); the fixtures
+   checknative each print 1; the fixtures
    (--k-list 21,29 --no-local) on cuda with MEGAHIT_TPU_TORCH_DEBUG=1:
    the invariant and finiteness checks run, and final.contigs.fa is
    byte-identical to the run without. Each step's seconds are printed.
@@ -1067,15 +1067,17 @@ def phase_ladder(torch, data) -> dict:
 
 
 def phase_engines(torch) -> None:
-    """The isolate's k=21 graph assembled with each cleaning engine on
-    cuda; every record must be equal."""
+    """The isolate's k=21 graph on cuda assembled by each route of
+    utils.device.graph_on_card: the card's (device cleaning engine) and,
+    with the predicate patched to False, the host's (host engine over
+    the native cores); every record must be equal."""
     import numpy as np
 
-    from megahit_tpu_torch.graph import assemble_device
     from megahit_tpu_torch.graph.sdbg import sdbg_from_edges
     from megahit_tpu_torch.pipeline.assemble import (
         AssembleOptions, assemble,
     )
+    from megahit_tpu_torch.utils import device as devices
     from megahit_tpu_torch.utils.log import setup_logging
     from megahit_tpu_torch.utils.timers import PhaseTimer
 
@@ -1086,11 +1088,11 @@ def phase_engines(torch) -> None:
         fail("[10] no k=21 edge file from [11]'s 1-pass run")
     z = np.load(edges)
     keys, counts = z["keys"], z["counts"]
-    on_device = assemble_device.use_device_cleaning
+    on_card = devices.graph_on_card
 
     def run(engine, prune, final):
-        assemble_device.use_device_cleaning = (
-            on_device if engine == "device" else lambda device: False)
+        devices.graph_on_card = (
+            on_card if engine == "device" else lambda device: False)
         try:
             sdbg = sdbg_from_edges(keys, counts, 22, device="cuda")
             timer = PhaseTimer()
@@ -1102,7 +1104,7 @@ def phase_engines(torch) -> None:
             torch.cuda.synchronize()
             wall = time.monotonic() - t0
         finally:
-            assemble_device.use_device_cleaning = on_device
+            devices.graph_on_card = on_card
 
         def fmt(cs):
             return [(c.codes.tobytes(), c.flag, f"{c.multi:.4f}")
@@ -1331,12 +1333,12 @@ def _stage_chain(torch, lib: str, out: str, dev: str, msgs) -> dict:
 
 def phase_stages(torch, data) -> dict:
     """[12] the stage subcommands on the isolate, cuda against cpu, with
-    read2sdbg, the sharded graph files, checkcpu/checknative, the link
-    probe and debug mode."""
+    read2sdbg, the sharded graph files, checkcpu/checknative and debug
+    mode."""
     import numpy as np
 
     from megahit_tpu_torch.graph.sdbg import Sdbg
-    from megahit_tpu_torch.utils import debug, devlink
+    from megahit_tpu_torch.utils import debug
     from megahit_tpu_torch.utils.log import get_logger, setup_logging
 
     setup_logging()  # console only
@@ -1404,18 +1406,13 @@ def phase_stages(torch, data) -> dict:
         f"buckets [0, 2^15) + [2^15, 2^16) equal "
         f"({time.monotonic() - t0:.2f}s)")
 
-    # introspection and the link probe
+    # introspection
     t0 = time.monotonic()
     cc = _stage(["checkcpu"]).strip().splitlines()[-1]
     cn = _stage(["checknative"]).strip().splitlines()[-1]
     if cc != "1" or cn != "1":
         fail(f"[12] checkcpu printed {cc}, checknative {cn}")
-    ms = devlink.link_latency_ms()
-    log(f"[12] checkcpu 1, checknative 1 ({time.monotonic() - t0:.2f}s); "
-        f"link_latency_ms {ms:.4f}, latency_bound_link "
-        f"{devlink.latency_bound_link()}")
-    if devlink.latency_bound_link():
-        fail("[12] the link probe routes cleaning off the card")
+    log(f"[12] checkcpu 1, checknative 1 ({time.monotonic() - t0:.2f}s)")
 
     # debug mode on the fixtures
     fx = os.path.join(DATA, "fixtures", "debug")

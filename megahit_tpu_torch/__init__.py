@@ -26,7 +26,7 @@ Package layout (as in megahit_tpu):
   native/    host C++ helpers (g++ at first use), loaded with ctypes
   pipeline/  multi-k driver, options, checkpointing
   utils/     logging, timers, host thread budget, histogram, debug mode,
-             the link probe
+             the device and route rule
   stage_cli.py  per-stage subcommands (buildlib, count, seq2sdbg, ...)
   tools.py   contig2fastg, filterbylen, readstat
   convert.py megahit_tpu state (as numpy arrays) -> this package's objects

@@ -206,9 +206,7 @@ def revcomp_kmers(keys, k: int):
             and len(keys) >= (1 << 14)):
         from ..native import OP_REVCOMP, transform_rows
 
-        out = transform_rows(keys, k, OP_REVCOMP)
-        if out is not None:
-            return out
+        return transform_rows(keys, k, OP_REVCOMP)
     w = keys.shape[-1]
     rev = _flip_words(_reverse_bases_in_word(_not(keys)))
     pad_bases = w * BASES_PER_WORD - k
@@ -223,9 +221,7 @@ def ref_order_keys(keys: np.ndarray, k: int) -> np.ndarray:
     if keys.ndim == 2 and len(keys) >= (1 << 14):
         from ..native import OP_REF_ORDER, transform_rows
 
-        out = transform_rows(keys, k, OP_REF_ORDER)
-        if out is not None:
-            return out
+        return transform_rows(keys, k, OP_REF_ORDER)
     node = mask_tail(keys, k - 1)
     rev_node = mask_tail(~revcomp_kmers(node, k - 1), k - 1)
     last = get_base(keys, k - 1).astype(U32)
@@ -305,9 +301,7 @@ def drop_first_base(keys, k: int):
             and len(keys) >= (1 << 14)):
         from ..native import OP_DROP_FIRST, transform_rows
 
-        out = transform_rows(keys, k, OP_DROP_FIRST)
-        if out is not None:
-            return out
+        return transform_rows(keys, k, OP_DROP_FIRST)
     return mask_tail(shift_left_bits(keys, 2), k)
 
 
@@ -446,44 +440,6 @@ def _reverse_bases_u64(x: np.ndarray) -> np.ndarray:
         b.reshape(-1, 8)[:, ::-1]).view(np.uint64).ravel()
 
 
-def ref_order_u64(keys: np.ndarray, k: int) -> np.ndarray:
-    """ref_order_keys for k <= 32 as ONE u64 per edge (same order)."""
-    assert k <= 32
-    c = np.uint64
-    u = keys_to_u64_words(keys) if keys.shape[-1] == 2 \
-        else keys[:, 0].astype(np.uint64) << c(32)
-    node = u & (~c(0) << c(64 - 2 * (k - 1)))
-    rev = _reverse_bases_u64(node) << c(2 * (32 - (k - 1)))
-    last = (u >> c(64 - 2 * k)) & c(3)
-    return rev | (last << c(62 - 2 * (k - 1)))
-
-
-def searchsorted_blocked_np(target, queries, tgt_top, q_top,
-                            bits: int = 11) -> np.ndarray:
-    """np.searchsorted(target, queries) for LARGE sorted targets:
-    partition queries by the top `bits` of a u32 discriminant column so
-    every per-bucket search probes a cache-resident target slice."""
-    n = len(target)
-    if n < (1 << 21) or len(queries) < (1 << 18):
-        return np.searchsorted(target, queries)
-    nb = 1 << bits
-    tb = (tgt_top >> np.uint32(32 - bits)).astype(np.int64)
-    bounds = np.searchsorted(tb, np.arange(nb + 1))
-    qb = (q_top >> np.uint32(32 - bits)).astype(np.uint16)
-    order = np.argsort(qb, kind="stable")
-    qs = queries[order]
-    qcounts = np.bincount(qb, minlength=nb)
-    out = np.empty(len(queries), np.int64)
-    off = 0
-    for b in np.nonzero(qcounts)[0]:
-        c = int(qcounts[b])
-        lo, hi = bounds[b], bounds[b + 1]
-        out[order[off:off + c]] = lo + np.searchsorted(
-            target[lo:hi], qs[off:off + c])
-        off += c
-    return out
-
-
 def argsort_rows_np(kn: np.ndarray) -> np.ndarray:
     """Lexicographic argsort of (N, W) u32 rows on host (unstable
     between equal rows)."""
@@ -491,9 +447,7 @@ def argsort_rows_np(kn: np.ndarray) -> np.ndarray:
     if len(kn) >= (1 << 16):
         from ..native import argsort_rows
 
-        perm = argsort_rows(kn)
-        if perm is not None:
-            return perm
+        return argsort_rows(kn)
     if w == 1:
         return np.argsort(kn[:, 0])
     cols = pack_u64_columns(kn)

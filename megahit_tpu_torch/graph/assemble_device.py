@@ -69,7 +69,6 @@ Counterpart of megahit_tpu/graph/assemble_device.py.
 from __future__ import annotations
 
 import dataclasses
-import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -79,7 +78,6 @@ from ..core import packing
 from ..parallel import rows as R
 from ..parallel.rows import Rows
 from ..utils.debug import check_finite
-from ..utils.devlink import latency_bound_link
 from ..utils.log import get_logger
 from .output import _last_base
 from .sdbg import Sdbg, simple_path_links_rows
@@ -89,22 +87,6 @@ I32 = torch.int32
 I64 = torch.int64
 F64 = torch.float64
 NULL = -1
-
-
-def use_device_cleaning(device) -> bool:
-    """True when the cleaning loop runs on this engine: the graph's
-    device is a card on a latency-cheap link (utils/devlink.py). On the
-    CPU the host engine (graph/cleaning.py) runs it, and so it does for
-    a card behind a remote link, where each of the engine's many small
-    passes would pay a round trip. MEGAHIT_TPU_TORCH_DEVICE_CLEAN=1/0
-    forces or forbids the engine (=1 on a CPU graph runs it on CPU
-    tensors)."""
-    env = os.environ.get("MEGAHIT_TPU_TORCH_DEVICE_CLEAN")
-    if env is not None:
-        return env == "1"
-    if torch.device(device).type == "cpu":
-        return False
-    return not latency_bound_link()
 
 
 # ---------------------------------------------------------------------------
@@ -741,10 +723,6 @@ class DeviceCleaner:
         if len(vs) == 0:
             return {}
         eidx = collect_chain_edges(nxt, start, lens)
-        if eidx is None:
-            raise RuntimeError(
-                "the native chain walk (native/graphwalk.cpp) did not "
-                "build; the device cleaning engine needs it")
         keys = self.sdbg.keys
         bases = _last_base(keys[eidx], self.k)
         offs = np.concatenate([[0], np.cumsum(lens)])

@@ -166,11 +166,8 @@ def find_next_kmers(
     # native rolling-window scan: fwd + rc probes, threaded over read
     # ranges; hits arrive position-sorted (the greedy-skip emulation
     # depends on it) with the window inside its read
-    scan = seed_scan(packed_np, starts, k1, index.keys, SCAN_BOTH)
-    if scan is None:
-        raise RuntimeError("the native seed scan library (native/"
-                           "seedscan.cpp) is unavailable; iterate needs it")
-    hpos, hrid, hfv, hrv, _ = scan
+    hpos, hrid, hfv, hrv, _ = seed_scan(packed_np, starts, k1,
+                                        index.keys, SCAN_BOTH)
     hpos = hpos.astype(np.int64)
     hrid = hrid.astype(np.int64)
     read_start_h = starts[hrid]

@@ -154,35 +154,18 @@ def _flags_host_u64(packed, packed_np, table, tflags, k, k1, n_bases,
     return has_in, has_out
 
 
-def _candidate_reads(packed, packed_np, rare_keys, k1, starts,
-                     valid_all, chunk_bases, pool) -> np.ndarray:
+def _candidate_reads(packed_np, rare_keys, k1, starts) -> np.ndarray:
     """Reads containing at least one NON-solid (k1)-window: a fully-
-    solid read cannot host a mercy gap."""
-    n_reads = len(starts) - 1
-    cand = np.zeros(n_reads, dtype=bool)
+    solid read cannot host a mercy gap (the native canonical seed
+    scan)."""
+    cand = np.zeros(len(starts) - 1, dtype=bool)
     if len(rare_keys) == 0:
         return cand
     from ..native import SCAN_CANON, seed_scan
 
-    scan = seed_scan(packed_np, starts, k1, rare_keys, SCAN_CANON)
-    if scan is not None:
-        _, rid, _, _, _ = scan
-        cand[rid] = True
-        return cand
-    rare_u64 = kmerops.keys_to_u64(rare_keys, k1)
-    w = kmerops.words_per_kmer(k1)
-    n_bases = int(starts[-1])
-    for lo, lo_w, size, span in _chunk_windows(
-            packed_np, n_bases, w, chunk_bases):
-        canon, _ = kmerops.canonical_kmers(
-            kmerops.extract_all_kmers(packed[lo_w:lo_w + size], k1), k1)
-        u = _u64(canon[:span])
-        u[~valid_all[lo : lo + span]] = np.uint64(0xFFFFFFFFFFFFFFFF)
-        _, found = kmerops.member_sorted_mt(rare_u64, u, pool)
-        loc = np.flatnonzero(found)
-        if len(loc):
-            rid = np.searchsorted(starts, loc + lo, side="right") - 1
-            cand[rid] = True
+    _, rid, _, _, _ = seed_scan(packed_np, starts, k1, rare_keys,
+                                SCAN_CANON)
+    cand[rid] = True
     return cand
 
 
@@ -276,14 +259,11 @@ def _mercy_candidate_reads_path(flat_codes, starts, solid_keys,
     from ..utils.threads import num_threads
 
     w = kmerops.words_per_kmer(k1)
-    n_bases = int(starts[-1])
     lengths = np.diff(starts)
     with ThreadPoolExecutor(max_workers=min(8, num_threads())) as pool:
         with span("candidates"):
             packed_np, packed = _upload_pool(flat_codes, w, device)
-            valid_all = window_valid_mask(starts, k1, n_bases)
-            cand = _candidate_reads(packed, packed_np, rare_keys, k1,
-                                    starts, valid_all, chunk_bases, pool)
+            cand = _candidate_reads(packed_np, rare_keys, k1, starts)
             cand &= lengths >= k1 + 1
             n_cand = int(cand.sum())
         if n_cand == 0:

@@ -15,6 +15,7 @@ import numpy as np
 
 from ..core import packing
 from ..io.contig_io import FLAG_LOOP, FLAG_STANDALONE, ContigRecord
+from ..utils import device as devices
 from .unitig import UnitigGraph
 
 
@@ -45,22 +46,18 @@ def unitig_codes(graph: UnitigGraph, subset: np.ndarray | None = None
     want = np.zeros(graph.size, dtype=bool)
     want[subset] = True
 
-    # --- chain vertices: native chain walks emit members already in
-    # (chain, pos) order - O(selected edges), no whole-edge scan; the
-    # vectorized (chain_start, pos) lexsort remains as the fallback
+    # --- chain vertices: on the host route, native chain walks emit
+    # members already in (chain, pos) order - O(selected edges), no
+    # whole-edge scan; the card's route lexsorts (chain_start, pos)
     chain_vs = subset[~graph.is_loop[subset]]
     if len(chain_vs):
-        eidx = None
-        from .sdbg import host_graph_passes
-
-        if host_graph_passes(s.device):
+        if not devices.graph_on_card(s.device):
             from ..native import collect_chain_edges
 
             eidx = collect_chain_edges(
                 graph.nxt, graph.start[chain_vs],
                 graph.length[chain_vs],
             )
-        if eidx is not None:
             counts = graph.length[chain_vs].astype(np.int64)
             boundaries = np.concatenate(
                 [[0], np.cumsum(counts)[:-1]]).astype(np.int64)

@@ -22,7 +22,8 @@ All four neighbour-candidate sets fall out by strand symmetry:
 The graph's arrays live on the host (numpy); ``Sdbg.device`` names the
 device its whole-graph passes run on. On CUDA the tip and simple-path
 passes are torch ops on that device; on the CPU they are the host
-engine's sparse walks and native chain walks (``host_graph_passes``).
+engine's sparse walks and native chain walks (the choice is
+``utils.device.graph_on_card``).
 
 Besides the one-file formats (`Sdbg.save`/`load`), a graph persists as
 per-shard files with a bucket manifest (`save_sharded`,
@@ -41,8 +42,8 @@ import numpy as np
 import torch
 
 from ..core import kmerops
+from ..utils import device as devices
 from ..utils.device import resolve_device
-from ..utils.devlink import latency_bound_link
 from ..utils.log import get_logger
 from .counter import KMAX_MUL, _pow2_pad
 
@@ -189,14 +190,10 @@ class Sdbg:
                 from ..native import OP_REF_ORDER, transform_rows
 
                 ro = transform_rows(self.keys, self.k, OP_REF_ORDER)
-                if ro is not None:
-                    # one native pass instead of ~6 numpy
-                    # bit-twiddle sweeps; u64 order == row order
-                    col = ro[:, 0].astype(np.uint64) << np.uint64(32)
-                    if ro.shape[1] > 1:
-                        col |= ro[:, 1]
-                else:
-                    col = kmerops.ref_order_u64(self.keys, self.k)
+                # u64 order == row order
+                col = ro[:, 0].astype(np.uint64) << np.uint64(32)
+                if ro.shape[1] > 1:
+                    col |= ro[:, 1]
                 col = np.where(self.valid, col,
                                np.uint64(0xFFFFFFFFFFFFFFFF))
                 perm = np.argsort(col)
@@ -578,13 +575,6 @@ def _run4(starts: np.ndarray, run_start: np.ndarray, real: int
     return np.where(ok, idx, NULL).astype(np.int32)
 
 
-def _void_rows(keys: np.ndarray) -> np.ndarray:
-    """(E, W) uint32 -> (E,) void view whose memcmp order equals the
-    lexicographic word order (big-endian byte layout)."""
-    be = np.ascontiguousarray(keys).astype(">u4")
-    return be.view(np.dtype((np.void, 4 * keys.shape[1]))).ravel()
-
-
 def _nav_links(keys: np.ndarray, k: int):
     """(run_start, nxt_link, rc) for SORTED (E, W) keys, host numpy.
 
@@ -630,9 +620,8 @@ def _nav_links(keys: np.ndarray, k: int):
                 np.int32)
         return run_start, nxt_link, rc
 
-    # general multi-word path: big-endian void views memcmp-compare in
-    # exact lexicographic word order (tested) - one binary search per
-    # join, no 2E-row sort
+    # general multi-word path: the native threaded row search - one
+    # binary search per join, no 2E-row sort
     assert e <= 1 or np.all(keys[1:, 0] >= keys[:-1, 0]), \
         "Sdbg keys must be sorted"
     prefix = np.asarray(kmerops.mask_tail(keys, k - 1))
@@ -648,23 +637,11 @@ def _nav_links(keys: np.ndarray, k: int):
     rck = np.asarray(kmerops.revcomp_kmers(keys, k))
     from ..native import row_search
 
-    nat = row_search(hpref, suffix)
-    if nat is not None:
-        pos, found = nat
-        nxt_link = np.where(
-            found, hrows[np.minimum(pos, len(hrows) - 1)], NULL
-        ).astype(np.int32)
-        rc = row_search(keys, rck)[0].astype(np.int32)
-        return run_start, nxt_link, rc
-    pos = kmerops.searchsorted_blocked_np(
-        _void_rows(hpref), _void_rows(suffix),
-        hpref[:, 0], suffix[:, 0])
-    posc = np.minimum(pos, len(hrows) - 1)
-    found = (hpref[posc] == suffix).all(axis=1)
-    nxt_link = np.where(found, hrows[posc], NULL).astype(np.int32)
-    rc = kmerops.searchsorted_blocked_np(
-        _void_rows(keys), _void_rows(rck), keys[:, 0], rck[:, 0]
+    pos, found = row_search(hpref, suffix)
+    nxt_link = np.where(
+        found, hrows[np.minimum(pos, len(hrows) - 1)], NULL
     ).astype(np.int32)
+    rc = row_search(keys, rck)[0].astype(np.int32)
     return run_start, nxt_link, rc
 
 
@@ -915,18 +892,6 @@ def window_edge_multiset(
     return keys, mults
 
 
-def use_device_build(device) -> bool:
-    """True when a contig-union build keeps its window multiset on the
-    device through the dedup (build_sdbg_device_resident): on a card,
-    the choice megahit_tpu makes on an accelerator backend. On the CPU
-    the union is window_edge_multiset + _finalize_sdbg.
-    MEGAHIT_TPU_TORCH_DEVICE_BUILD=1/0 forces either route (=1 on the
-    CPU runs the device-resident route on CPU tensors)."""
-    env = os.environ.get("MEGAHIT_TPU_TORCH_DEVICE_BUILD")
-    return env == "1" or (env != "0"
-                          and torch.device(device).type != "cpu")
-
-
 def build_sdbg_device_resident(
     flat_codes,
     starts: np.ndarray,
@@ -1016,6 +981,35 @@ def build_sdbg_device_resident(
         up_bytes / 1e6, down_bytes / 1e6)
     return _make_sdbg(np.ascontiguousarray(edges_host),
                       mult_host.astype(np.int32), k, device=device)
+
+
+def build_sdbg_union(flat_codes, starts: np.ndarray,
+                     seq_mults: np.ndarray, k: int,
+                     edge_keys: np.ndarray | None, edge_counts:
+                     np.ndarray | None, device,
+                     batch_windows: int = 1 << 21) -> Sdbg:
+    """The in-memory union of a rung's inputs (reference seq2sdbg
+    Initialize, seq_to_sdbg.cpp:359-528): the windows of the contig
+    sequences (each at its multiplicity) and the edge-file keys with
+    their reverse complements, finalized once. On a card the multiset
+    stays on the device through the dedup (build_sdbg_device_resident);
+    on the CPU it is window_edge_multiset, the edges appended, and one
+    _finalize_sdbg (utils.device.graph_on_card decides)."""
+    if devices.graph_on_card(device):
+        return build_sdbg_device_resident(
+            flat_codes, starts, seq_mults, k, edge_keys=edge_keys,
+            edge_counts=edge_counts, batch_windows=batch_windows,
+            device=device)
+    keys, mults = window_edge_multiset(flat_codes, starts, seq_mults, k,
+                                       batch_windows=batch_windows,
+                                       device=device)
+    if edge_keys is not None and len(edge_keys):
+        rc = kmerops.revcomp_kmers(
+            np.ascontiguousarray(edge_keys, dtype=np.uint32), k)
+        keys = np.concatenate([keys, edge_keys, rc], axis=0)
+        mults = np.concatenate([mults, edge_counts, edge_counts])
+    return _finalize_sdbg(keys, mults.astype(np.int32), k,
+                          n_windows=len(keys), device=device)
 
 
 def _dev_extract_chunk(sub, vm_packed, rel_starts, rel_mults, span: int,
@@ -1146,40 +1140,13 @@ def deg_at(sdbg: "Sdbg", rows, which: str) -> np.ndarray:
 
 
 def simple_path_links_host(sdbg: "Sdbg"):
-    """Host fast path of simple_path_links: degree tests are single
-    rvc gathers; the unique-successor member is resolved only at the
-    (sparse-ish) rows that pass, and prv is the exact inverse of nxt
-    (nxt[e]=f and prv[f]=e share the same node-degree condition)."""
-    rs, nl, rc = sdbg.run_start, sdbg.nxt_link, sdbg.rc
-    valid = sdbg.valid
-    rvc = sdbg.rvc
-    from ..native import simple_links as _native_simple_links
+    """Host route of simple_path_links: the native threaded scan
+    (native/seedscan.cpp simple_links), whose degree tests are single
+    rvc gathers and whose prv is the exact inverse of nxt."""
+    from ..native import simple_links
 
-    nat = _native_simple_links(rs, nl, rc, valid, rvc, sdbg.real)
-    if nat is not None:
-        return nat
-    odt = np.where(nl >= 0, rvc[np.maximum(nl, 0)], 0)
-    idt = rvc[rs[rc]]
-    sel = valid & (odt == 1) & (idt == 1)
-    nxt = np.full(sdbg.size, NULL, np.int32)
-    rows = np.flatnonzero(sel)
-    # most runs are singletons (distinct (k-1)-nodes nearly equal
-    # distinct k-mers): there the unique valid member IS the run start
-    # (rvc == 1 implies it is valid); resolve only multi-member runs
-    nlr = nl[rows].astype(np.int64)
-    nxt_rows = nlr.astype(np.int32)
-    nxt1 = np.minimum(nlr + 1, max(sdbg.real - 1, 0))
-    multi = (nlr + 1 < sdbg.real) & (rs[nxt1] == nlr)
-    mr = rows[multi]
-    if len(mr):
-        m = _run4(nl[mr], rs, sdbg.real)
-        mv = (m >= 0) & valid[np.maximum(m, 0)]
-        nxt_rows[multi] = np.max(np.where(mv, m, NULL), axis=1)
-    nxt[rows] = nxt_rows
-    prv = np.full(sdbg.size, NULL, np.int32)
-    has = np.flatnonzero(nxt >= 0)
-    prv[nxt[has]] = has
-    return nxt, prv
+    return simple_links(sdbg.run_start, sdbg.nxt_link, sdbg.rc,
+                        sdbg.valid, sdbg.rvc, sdbg.real)
 
 
 def _run_members_valid(starts, run_start, valid):
@@ -1408,22 +1375,11 @@ def _remove_tips_sdbg_host(sdbg: Sdbg, max_tip_len: int) -> int:
     return total
 
 
-def host_graph_passes(device) -> bool:
-    """True when the latency-bound graph passes (tips, unitig links and
-    ranks, chain walks) run on the host engine: the graph's device is
-    the CPU, or a card behind a latency-expensive link
-    (utils/devlink.py) where per-pass round trips dwarf the pass
-    compute. On a local card they run as whole-graph torch passes."""
-    if torch.device(device).type == "cpu":
-        return True
-    return latency_bound_link()
-
-
 def remove_tips_sdbg(sdbg: Sdbg, max_tip_len: int) -> int:
     """Doubling-length tip removal schedule (sdbg_pruning.cpp:147-178).
 
     Host: sparse seed walks; CUDA: whole-graph pointer doubling."""
-    if host_graph_passes(sdbg.device):
+    if not devices.graph_on_card(sdbg.device):
         return _remove_tips_sdbg_host(sdbg, max_tip_len)
     log = get_logger()
     dev = sdbg.device

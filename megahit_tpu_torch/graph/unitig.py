@@ -23,6 +23,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..utils import device as devices
 from ..utils.log import get_logger
 from .sdbg import Sdbg, simple_path_links
 
@@ -190,13 +191,18 @@ def build_unitig_graph(sdbg: Sdbg) -> UnitigGraph:
                            chain_start=z.copy(), edge_pos=z.copy(),
                            nxt=z.copy(), prv=z.copy())
 
-    from .sdbg import host_graph_passes
-
-    on_host = host_graph_passes(sdbg.device)
-    if on_host:
+    validn = sdbg.valid
+    if not devices.graph_on_card(sdbg.device):
+        # host route: native threaded links, then one O(E) native
+        # pointer walk (native/graphwalk.cpp) instead of log2(E) rounds
+        # of whole-graph gathers
+        from ..native import chain_rank
         from .sdbg import simple_path_links_host
 
         nxt, prv = simple_path_links_host(sdbg)
+        chain_start, chain_end_arr, pos, in_cycle = chain_rank(
+            nxt, prv, validn)
+        in_cycle = in_cycle & validn
     else:
         dev = sdbg.device
         nxt_t, prv_t = simple_path_links(*(
@@ -205,23 +211,7 @@ def build_unitig_graph(sdbg: Sdbg) -> UnitigGraph:
             torch.from_numpy(sdbg.valid).to(dev))
         nxt = nxt_t.cpu().numpy().astype(np.int32)
         prv = prv_t.cpu().numpy().astype(np.int32)
-    validn = sdbg.valid
-
-    ranked = None
-    if on_host:
-        # host fast path: one O(E) native pointer walk instead of
-        # log2(E) rounds of whole-graph gathers (native/graphwalk.cpp)
-        from ..native import chain_rank as _native_chain_rank
-
-        ranked = _native_chain_rank(nxt, prv, validn)
-    if ranked is not None:
-        chain_start, chain_end_arr, pos, in_cycle = ranked
-        in_cycle = in_cycle & validn
-    else:
         rounds = max(1, int(np.ceil(np.log2(max(e, 2)))))
-        if on_host:
-            nxt_t = torch.from_numpy(nxt).to(torch.int64)
-            prv_t = torch.from_numpy(prv).to(torch.int64)
         end, d_end, start, pos, mn = (
             t.cpu().numpy() for t in _list_rank(nxt_t, prv_t, rounds))
         # cycles: chains whose "end" still has a successor
@@ -350,10 +340,7 @@ def _kill_edge_indices(graph, delete, disc_fwd, disc_rc):
     if disc_rc.any():
         parts.append(graph.rc_start[disc_rc])
     if delete.any():
-        fwd = None
-        from .sdbg import host_graph_passes
-
-        if host_graph_passes(graph.sdbg.device):
+        if not devices.graph_on_card(graph.sdbg.device):
             # sparse: walk only the deleted chains (forward strands;
             # invalidate_idx adds the rc partners) instead of scanning
             # every edge's vid
@@ -363,7 +350,7 @@ def _kill_edge_indices(graph, delete, disc_fwd, disc_rc):
             fwd = collect_chain_edges(
                 graph.nxt, graph.start[rows], graph.length[rows]
             )
-        if fwd is None:
+        else:
             member = (graph.vid >= 0) & delete[np.maximum(graph.vid, 0)]
             fwd = np.flatnonzero(member)
         parts.append(fwd)
@@ -600,43 +587,19 @@ def _refresh_contracted(graph, delete, disc_fwd, disc_rc,
     else:
         nxt_se = prv_se = np.zeros(0, dtype=np.int64)
 
-    # --- rank the super-edge graph: native O(M) walk, numpy pointer
-    # doubling as the fallback
+    # --- rank the super-edge graph: native O(M) walk (at M = 0 it
+    # returns empty arrays)
     idx = np.arange(m, dtype=np.int64)
-    from ..native import chain_rank as _native_chain_rank
+    from ..native import chain_rank
 
-    ranked = None
-    if m:
-        ranked = _native_chain_rank(
-            nxt_se.astype(np.int32), prv_se.astype(np.int32),
-            np.ones(m, dtype=bool))
-    if ranked is not None:
-        cs32, ce32, pos32, cyc8 = ranked
-        in_cycle = cyc8
-        chain_of = cs32.astype(np.int64)
-        chain_end = ce32.astype(np.int64)
-        # numpy doubling leaves cycle positions all-equal (ties break
-        # by stable index order downstream); reproduce that exactly
-        pos_se = np.where(in_cycle, 0, pos32).astype(np.int64)
-    else:
-        nn = np.where(nxt_se >= 0, nxt_se, idx)
-        pp = np.where(prv_se >= 0, prv_se, idx)
-        d_end = (nxt_se >= 0).astype(np.int64)
-        d_start = (prv_se >= 0).astype(np.int64)
-        mn = idx.copy()
-        rounds = max(1, int(np.ceil(np.log2(max(m, 2)))))
-        for _ in range(rounds):
-            d_end += d_end[nn]
-            d_start += d_start[pp]
-            np.minimum(mn, mn[nn], out=mn)
-            nn = nn[nn]
-            pp = pp[pp]
-        end_se, start_se, pos_se = nn, pp, d_start
-
-        in_cycle = nxt_se[end_se] >= 0 if m else np.zeros(0, bool)
-        chain_of = np.where(in_cycle, mn, start_se)
-        chain_end = np.where(in_cycle, prv_se[mn], end_se)
-        pos_se = np.where(in_cycle, 0, pos_se)
+    cs32, ce32, pos32, in_cycle = chain_rank(
+        nxt_se.astype(np.int32), prv_se.astype(np.int32),
+        np.ones(m, dtype=bool))
+    chain_of = cs32.astype(np.int64)
+    chain_end = ce32.astype(np.int64)
+    # cycle positions are all equal (ties break by stable index order
+    # downstream)
+    pos_se = np.where(in_cycle, 0, pos32).astype(np.int64)
     is_rep = chain_of == idx
     rep = np.flatnonzero(is_rep)
     len_per = np.bincount(chain_of, weights=se_len, minlength=max(m, 1)
@@ -734,12 +697,11 @@ def _refresh_contracted(graph, delete, disc_fwd, disc_rc,
     else:
         ch_chain = np.zeros(0, bool)
 
-    # changed edges: walk only the changed chains natively (own-strand
-    # exact); fall back to the full-edge scan + strand resolution
-    ce = se_ce = None
-    from .sdbg import host_graph_passes
-
-    if host_graph_passes(s.device) and m:
+    # changed edges: on the host route, walk only the changed chains
+    # natively (own-strand exact); on the card's, the full-edge scan +
+    # strand resolution
+    se_ce = None
+    if not devices.graph_on_card(s.device) and m:
         from ..native import collect_chain_edges
 
         sef = np.flatnonzero(changed_se[:n_l])
@@ -750,15 +712,14 @@ def _refresh_contracted(graph, delete, disc_fwd, disc_rc,
             graph.nxt, graph.start[rows_f], graph.length[rows_f])
         cer = collect_chain_edges(
             graph.nxt, graph.rc_start[rows_r], graph.length[rows_r])
-        if cef is not None and cer is not None:
-            ce0 = np.concatenate([cef, cer]).astype(np.int64)
-            se0 = np.concatenate([
-                np.repeat(sef, graph.length[rows_f]),
-                np.repeat(ser, graph.length[rows_r]),
-            ])
-            keepv = s.valid[ce0]
-            ce, se_ce = ce0[keepv], se0[keepv]
-    if ce is None:
+        ce0 = np.concatenate([cef, cer]).astype(np.int64)
+        se0 = np.concatenate([
+            np.repeat(sef, graph.length[rows_f]),
+            np.repeat(ser, graph.length[rows_r]),
+        ])
+        keepv = s.valid[ce0]
+        ce, se_ce = ce0[keepv], se0[keepv]
+    else:
         chfw = np.zeros(graph.size, dtype=bool)
         chrc = np.zeros(graph.size, dtype=bool)
         if m:

@@ -232,45 +232,44 @@ def read_fastx_flat(
 ) -> tuple[np.ndarray, np.ndarray]:
     """Read a whole file into pool form (flat_codes, starts).
 
-    Uses the native C++ parser (megahit_tpu_torch.native) when available -
-    the reference's host I/O core is C++ too (kseq + SequencePackage).
+    Uses the native C++ parser (megahit_tpu_torch.native) - the
+    reference's host I/O core is C++ too (kseq + SequencePackage).
     Chunked: the native partial parser consumes complete records per
     decompressed chunk (carrying the cut tail) while the next chunk
-    inflates in a background thread; falls back to the whole-buffer
-    Python line parser."""
+    inflates in a background thread; input it rejects as malformed
+    goes to the whole-buffer Python line parser."""
     from .. import native
 
-    if native.get_lib() is not None:
-        code_parts, len_parts = [], []
-        carry = b""
-        ok = True
-        for data in _raw_chunks(path, chunk_bytes):
-            buf = carry + data if carry else data
-            out = native.parse_fastx_partial(buf, eof=False,
-                                             trim_n=do_trim_n)
-            if out is None:  # malformed for the fast path
-                ok = False
-                break
-            codes, lens, consumed = out
-            code_parts.append(codes)
-            len_parts.append(lens)
-            carry = buf[consumed:]
-        if ok and carry:
-            out = native.parse_fastx_partial(carry, eof=True,
-                                             trim_n=do_trim_n)
-            if out is None:
-                ok = False
-            else:
-                code_parts.append(out[0])
-                len_parts.append(out[1])
-        if ok:
-            if not code_parts:
-                return np.zeros(0, np.uint8), np.zeros(1, np.int64)
-            flat = np.concatenate(code_parts)
-            lens = np.concatenate(len_parts)
-            starts = np.zeros(len(lens) + 1, dtype=np.int64)
-            np.cumsum(lens, out=starts[1:])
-            return flat, starts
+    code_parts, len_parts = [], []
+    carry = b""
+    ok = True
+    for data in _raw_chunks(path, chunk_bytes):
+        buf = carry + data if carry else data
+        out = native.parse_fastx_partial(buf, eof=False,
+                                         trim_n=do_trim_n)
+        if out is None:  # malformed for the fast path
+            ok = False
+            break
+        codes, lens, consumed = out
+        code_parts.append(codes)
+        len_parts.append(lens)
+        carry = buf[consumed:]
+    if ok and carry:
+        out = native.parse_fastx_partial(carry, eof=True,
+                                         trim_n=do_trim_n)
+        if out is None:
+            ok = False
+        else:
+            code_parts.append(out[0])
+            len_parts.append(out[1])
+    if ok:
+        if not code_parts:
+            return np.zeros(0, np.uint8), np.zeros(1, np.int64)
+        flat = np.concatenate(code_parts)
+        lens = np.concatenate(len_parts)
+        starts = np.zeros(len(lens) + 1, dtype=np.int64)
+        np.cumsum(lens, out=starts[1:])
+        return flat, starts
 
     with _open(path) as fh:
         data = fh.read()

@@ -178,13 +178,9 @@ def map_reads(
     # position, threaded over read ranges; reads shorter than
     # max(seed_k, 50) are unreliable and skipped (reference TryMap,
     # hash_mapper.cpp:140)
-    scan = seed_scan(packed_np, starts, seed_k, index.keys,
-                     SCAN_CANON, min_read_len=max(seed_k, 50))
-    if scan is None:
-        raise RuntimeError("the native seed scan library (native/"
-                           "seedscan.cpp) is unavailable; the mapper "
-                           "needs it")
-    sel, rid, h, _, qrc_h = scan
+    sel, rid, h, _, qrc_h = seed_scan(
+        packed_np, starts, seed_k, index.keys, SCAN_CANON,
+        min_read_len=max(seed_k, 50))
     lengths = np.diff(starts)
     if len(sel) == 0:
         return out

@@ -67,15 +67,6 @@ _U64 = np.uint64
 IDBA_KMAX = 255
 
 
-def _native(result, what: str):
-    """The result of a native helper; None means its library did not
-    build, which this module does not work around."""
-    if result is None:
-        raise RuntimeError(f"native {what} is unavailable (the host C++ "
-                           "helpers under native/ did not build)")
-    return result
-
-
 def _ncols(k: int) -> int:
     """u64 key columns for k bases (2 bits each, LEFT-aligned)."""
     assert k <= IDBA_KMAX, k
@@ -158,7 +149,7 @@ def _argsort_g_cols(gid: np.ndarray, cols: list, k: int) -> np.ndarray:
         rows[:, 1] = c0 >> _U64(32)
         rows[:, 2] = c0 & _U64(0xFFFFFFFF)
         rows[:, 3] = c1 >> _U64(32)  # low 32 bits zero for k <= 48
-        return _native(argsort_rows(rows), "argsort_rows")
+        return argsort_rows(rows)
     return np.lexsort(tuple(reversed(cols)) + (gid,))
 
 
@@ -463,8 +454,7 @@ def _contract(tbl: _VertexTable) -> _Contigs:
     pred = np.where(st >= 0, st ^ 1, np.int32(-1))
     from ..native import chain_rank, collect_chain_edges
 
-    cs32, _, _, cyc = _native(
-        chain_rank(succ, pred, np.ones(na, dtype=bool)), "chain_rank")
+    cs32, _, _, cyc = chain_rank(succ, pred, np.ones(na, dtype=bool))
     leader = cs32.astype(np.int64)
     if cyc.any():
         tbl.alive[np.unique(a_ids[cyc] >> 1)] = False
@@ -474,8 +464,7 @@ def _contract(tbl: _VertexTable) -> _Contigs:
     heads32 = np.flatnonzero(pred < 0).astype(np.int32)
     lens32 = np.bincount(leader, minlength=na)[heads32] \
         .astype(np.int32)
-    order = _native(collect_chain_edges(succ, heads32, lens32),
-                    "collect_chain_edges").astype(np.int64)
+    order = collect_chain_edges(succ, heads32, lens32).astype(np.int64)
     seg_end = np.cumsum(lens32.astype(np.int64))
     sidx = seg_end - lens32
     heads = order[sidx]

@@ -1,9 +1,11 @@
 """Native (C++) host-side cores, loaded via ctypes.
 
 Built on demand with g++ into the package's git-ignored ``_build/``
-directory. A failed build raises ``NativeBuildError`` with the
-compiler's message: the pure-Python fallbacks behind the entry points
-turn minutes into hours at metagenome scale.
+directory. The cores are required: a core that g++ cannot build, or
+whose library does not load, raises ``NativeBuildError`` with the
+compiler's or the loader's message. Only the FASTA/Q parsers return
+None, for input the native parser rejects as malformed (io/fastx.py
+parses it in Python).
 """
 
 from __future__ import annotations
@@ -22,11 +24,11 @@ _SO = os.path.join(BUILD_DIR, "libfastxpack.so")
 _SRC = os.path.join(_DIR, "fastxpack.cpp")
 
 _lib = None
-_tried = False
 
 
 class NativeBuildError(RuntimeError):
-    """g++ could not build a native core; the message holds its output."""
+    """A native core did not build (the message holds g++'s output) or
+    its library did not load (the message holds the loader's error)."""
 
 
 def _build_so(src: str, so: str, extra: tuple[str, ...] = (),
@@ -62,58 +64,69 @@ def _needs_build(src: str, so: str) -> bool:
     )
 
 
+def _load(src: str, so: str, what: str, bind,
+          extra: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """Build `so` from `src` when it is missing or older, load it and
+    bind its symbols with `bind(lib)`. Raises NativeBuildError when g++
+    fails or the library does not load."""
+    if _needs_build(src, so):
+        _build_so(src, so, extra=extra, what=what)
+    try:
+        lib = ctypes.CDLL(so)
+        bind(lib)
+    except (OSError, AttributeError) as e:
+        raise NativeBuildError(
+            f"native {what}: {so} was built but does not load: {e}") from e
+    return lib
+
+
 def native_status() -> dict[str, bool]:
     """Availability of each native core (for checkcpu-style reports); a
-    core whose build fails reports False and its error is logged."""
+    core that does not build or load reports False and its error is
+    logged."""
     status = {}
     for name, load in (("fastxpack", get_lib),
                        ("graphwalk", get_graphwalk),
                        ("seedscan", get_seedscan)):
         try:
-            status[name] = load() is not None
+            load()
+            status[name] = True
         except NativeBuildError as e:
             get_logger().error("%s", e)
             status[name] = False
     return status
 
 
-def get_lib():
-    """The loaded native library, or None when it builds but does not
-    load (Python fallback); NativeBuildError when g++ fails."""
-    global _lib, _tried
-    if _lib is not None or _tried:
-        return _lib
-    if _needs_build(_SRC, _SO):
-        _build_so(_SRC, _SO, what="fastxpack")
-    _tried = True
-    try:
-        lib = ctypes.CDLL(_SO)
-        lib.fastx_parse.restype = ctypes.c_int64
-        lib.fastx_parse.argtypes = [
-            ctypes.c_char_p, ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_uint8),
-            ctypes.POINTER(ctypes.c_int64),
-            ctypes.c_int64, ctypes.c_int,
-        ]
-        lib.pack_codes.restype = None
-        lib.pack_codes.argtypes = [
-            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_uint32),
-        ]
-        lib.fastx_parse_partial.restype = ctypes.c_int64
-        lib.fastx_parse_partial.argtypes = [
-            ctypes.c_char_p, ctypes.c_int64, ctypes.c_int,
-            ctypes.POINTER(ctypes.c_uint8),
-            ctypes.POINTER(ctypes.c_int64),
-            ctypes.c_int64, ctypes.c_int,
-            ctypes.POINTER(ctypes.c_int64),
-        ]
-        _lib = lib
-    except OSError as e:
-        get_logger().warning(
-            "native fastxpack load failed (%s); Python FASTA/Q parsing "
-            "is much slower", e)
+def get_lib() -> ctypes.CDLL:
+    """The loaded fastxpack library (NativeBuildError if it does not
+    build or load)."""
+    global _lib
+    if _lib is None:
+        _lib = _load(_SRC, _SO, "fastxpack", _bind_fastxpack)
     return _lib
+
+
+def _bind_fastxpack(lib) -> None:
+    lib.fastx_parse.restype = ctypes.c_int64
+    lib.fastx_parse.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_uint8),
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.c_int64, ctypes.c_int,
+    ]
+    lib.pack_codes.restype = None
+    lib.pack_codes.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_uint32),
+    ]
+    lib.fastx_parse_partial.restype = ctypes.c_int64
+    lib.fastx_parse_partial.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_uint8),
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.c_int64, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int64),
+    ]
 
 
 def parse_fastx_buffer_flat(
@@ -122,12 +135,10 @@ def parse_fastx_buffer_flat(
     """Parse a decompressed FASTA/FASTQ buffer natively.
 
     Returns (flat_codes uint8, starts int64 (S+1,)) - the pool form
-    every downstream consumer wants - or None if the native library is
-    unavailable/input malformed (caller falls back to Python).
+    every downstream consumer wants - or None if the input is malformed
+    for the native parser (the caller parses it in Python).
     """
     lib = get_lib()
-    if lib is None:
-        return None
     if not data:
         return np.zeros(0, np.uint8), np.zeros(1, np.int64)
     n = len(data)
@@ -153,10 +164,8 @@ def parse_fastx_partial(
 ) -> tuple[np.ndarray, np.ndarray, int] | None:
     """Parse the COMPLETE records of a chunk; returns (flat_codes,
     lens, consumed_bytes) - the incomplete tail is the caller's carry.
-    None if native is unavailable or the chunk is malformed."""
+    None if the chunk is malformed for the native parser."""
     lib = get_lib()
-    if lib is None:
-        return None
     n = len(data)
     if n == 0:
         return np.zeros(0, np.uint8), np.zeros(0, np.int64), 0
@@ -184,36 +193,28 @@ def parse_fastx_partial(
 _GW_SO = os.path.join(BUILD_DIR, "libgraphwalk.so")
 _GW_SRC = os.path.join(_DIR, "graphwalk.cpp")
 _gw_lib = None
-_gw_tried = False
 
 
-def get_graphwalk():
-    """The loaded graphwalk library, or None when it builds but does
-    not load (numpy fallback); NativeBuildError when g++ fails."""
-    global _gw_lib, _gw_tried
-    if _gw_lib is not None or _gw_tried:
-        return _gw_lib
-    if _needs_build(_GW_SRC, _GW_SO):
-        _build_so(_GW_SRC, _GW_SO, what="graphwalk")
-    _gw_tried = True
-    try:
-        lib = ctypes.CDLL(_GW_SO)
-        i32p = ctypes.POINTER(ctypes.c_int32)
-        u8p = ctypes.POINTER(ctypes.c_uint8)
-        lib.chain_rank.restype = None
-        lib.chain_rank.argtypes = [
-            i32p, i32p, u8p, ctypes.c_int64, i32p, i32p, i32p, u8p,
-        ]
-        lib.collect_chain_edges.restype = ctypes.c_int64
-        lib.collect_chain_edges.argtypes = [
-            i32p, i32p, i32p, ctypes.c_int64, i32p,
-        ]
-        _gw_lib = lib
-    except OSError as e:
-        get_logger().warning(
-            "native graphwalk load failed (%s); pointer-doubling "
-            "fallback is much slower at graph scale", e)
+def get_graphwalk() -> ctypes.CDLL:
+    """The loaded graphwalk library (NativeBuildError if it does not
+    build or load)."""
+    global _gw_lib
+    if _gw_lib is None:
+        _gw_lib = _load(_GW_SRC, _GW_SO, "graphwalk", _bind_graphwalk)
     return _gw_lib
+
+
+def _bind_graphwalk(lib) -> None:
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    lib.chain_rank.restype = None
+    lib.chain_rank.argtypes = [
+        i32p, i32p, u8p, ctypes.c_int64, i32p, i32p, i32p, u8p,
+    ]
+    lib.collect_chain_edges.restype = ctypes.c_int64
+    lib.collect_chain_edges.argtypes = [
+        i32p, i32p, i32p, ctypes.c_int64, i32p,
+    ]
 
 
 def _i32p(a):
@@ -227,7 +228,6 @@ def _i32p(a):
 _SS_SO = os.path.join(BUILD_DIR, "libseedscan.so")
 _SS_SRC = os.path.join(_DIR, "seedscan.cpp")
 _ss_lib = None
-_ss_tried = False
 
 
 class _ScanResult(ctypes.Structure):
@@ -241,56 +241,49 @@ class _ScanResult(ctypes.Structure):
     ]
 
 
-def get_seedscan():
-    """The loaded seedscan library, or None when it builds but does
-    not load (numpy fallback); NativeBuildError when g++ fails."""
-    global _ss_lib, _ss_tried
-    if _ss_lib is not None or _ss_tried:
-        return _ss_lib
-    if _needs_build(_SS_SRC, _SS_SO):
-        _build_so(_SS_SRC, _SS_SO, extra=("-std=c++17", "-pthread"),
-                  what="seedscan")
-    _ss_tried = True
-    try:
-        lib = ctypes.CDLL(_SS_SO)
-        u32p = ctypes.POINTER(ctypes.c_uint32)
-        i64p = ctypes.POINTER(ctypes.c_int64)
-        lib.seed_scan.restype = ctypes.POINTER(_ScanResult)
-        lib.seed_scan.argtypes = [
-            u32p, i64p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int64, u32p, ctypes.c_int64,
-            ctypes.c_int,
-        ]
-        lib.seed_scan_free.restype = None
-        lib.seed_scan_free.argtypes = [ctypes.POINTER(_ScanResult)]
-        i64p = ctypes.POINTER(ctypes.c_int64)
-        u8p = ctypes.POINTER(ctypes.c_uint8)
-        lib.transform_rows.restype = None
-        lib.transform_rows.argtypes = [
-            u32p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, u32p, ctypes.c_int,
-        ]
-        lib.row_search.restype = None
-        lib.row_search.argtypes = [
-            u32p, ctypes.c_int64, u32p, ctypes.c_int64, ctypes.c_int,
-            i64p, u8p, ctypes.c_int,
-        ]
-        lib.argsort_rows.restype = None
-        lib.argsort_rows.argtypes = [
-            u32p, ctypes.c_int64, ctypes.c_int, i64p, ctypes.c_int,
-        ]
-        i32p = ctypes.POINTER(ctypes.c_int32)
-        lib.simple_links.restype = None
-        lib.simple_links.argtypes = [
-            i32p, i32p, i32p, u8p, i32p, ctypes.c_int64,
-            ctypes.c_int64, i32p, i32p, ctypes.c_int,
-        ]
-        _ss_lib = lib
-    except OSError as e:
-        get_logger().warning(
-            "native seedscan load failed (%s); numpy scan/sort "
-            "fallbacks are much slower at pool scale", e)
+def get_seedscan() -> ctypes.CDLL:
+    """The loaded seedscan library (NativeBuildError if it does not
+    build or load)."""
+    global _ss_lib
+    if _ss_lib is None:
+        _ss_lib = _load(_SS_SRC, _SS_SO, "seedscan", _bind_seedscan,
+                        extra=("-std=c++17", "-pthread"))
     return _ss_lib
+
+
+def _bind_seedscan(lib) -> None:
+    u32p = ctypes.POINTER(ctypes.c_uint32)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    lib.seed_scan.restype = ctypes.POINTER(_ScanResult)
+    lib.seed_scan.argtypes = [
+        u32p, i64p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int64, u32p, ctypes.c_int64,
+        ctypes.c_int,
+    ]
+    lib.seed_scan_free.restype = None
+    lib.seed_scan_free.argtypes = [ctypes.POINTER(_ScanResult)]
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    lib.transform_rows.restype = None
+    lib.transform_rows.argtypes = [
+        u32p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, u32p, ctypes.c_int,
+    ]
+    lib.row_search.restype = None
+    lib.row_search.argtypes = [
+        u32p, ctypes.c_int64, u32p, ctypes.c_int64, ctypes.c_int,
+        i64p, u8p, ctypes.c_int,
+    ]
+    lib.argsort_rows.restype = None
+    lib.argsort_rows.argtypes = [
+        u32p, ctypes.c_int64, ctypes.c_int, i64p, ctypes.c_int,
+    ]
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    lib.simple_links.restype = None
+    lib.simple_links.argtypes = [
+        i32p, i32p, i32p, u8p, i32p, ctypes.c_int64,
+        ctypes.c_int64, i32p, i32p, ctypes.c_int,
+    ]
 
 
 SCAN_CANON = 0
@@ -302,17 +295,13 @@ def seed_scan(packed_words: np.ndarray, starts: np.ndarray, k: int,
               table: np.ndarray, mode: int, min_read_len: int = 0):
     """Scan every k-window of the packed pool against the sorted (T, W)
     table. Returns (pos int64, rid int32, idx_a int32, idx_b
-    int32|None, flag u8) for hit positions only, ascending; or None
-    when native is unavailable (caller keeps its chunked numpy/torch
-    path).
+    int32|None, flag u8) for hit positions only, ascending.
 
     mode SCAN_CANON: probe min(fwd, rc); idx_a = row, flag = is_rc.
     mode SCAN_FWD:   probe fwd only; idx_a = row.
     mode SCAN_BOTH:  probe fwd and rc; idx_a / idx_b = rows or -1.
     """
     lib = get_seedscan()
-    if lib is None:
-        return None
     table = np.ascontiguousarray(table, dtype=np.uint32)
     if table.ndim == 1:
         table = table[:, None]
@@ -361,19 +350,15 @@ OP_REF_ORDER = 1
 OP_DROP_FIRST = 2
 
 
-def transform_rows(keys: np.ndarray, k: int, op: int
-                   ) -> np.ndarray | None:
+def transform_rows(keys: np.ndarray, k: int, op: int) -> np.ndarray:
     """Per-row key transform on (N, W) left-aligned 2-bit rows:
     OP_REVCOMP = kmerops.revcomp_kmers, OP_REF_ORDER =
-    kmerops.ref_order_keys, OP_DROP_FIRST = kmerops.drop_first_base.
-    None when native is unavailable."""
+    kmerops.ref_order_keys, OP_DROP_FIRST = kmerops.drop_first_base."""
     lib = get_seedscan()
-    if lib is None:
-        return None
     keys = np.ascontiguousarray(keys, dtype=np.uint32)
     n, w = keys.shape
-    if w > 16:  # C side uses fixed uint32_t[16] row buffers (k <= 255)
-        return None
+    if w > 16:  # the C side's row buffers are uint32_t[16] (k <= 256)
+        raise ValueError(f"transform_rows: {w} words a row, at most 16")
     out = np.empty_like(keys)
     lib.transform_rows(
         keys.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
@@ -384,13 +369,10 @@ def transform_rows(keys: np.ndarray, k: int, op: int
     return out
 
 
-def argsort_rows(keys: np.ndarray) -> np.ndarray | None:
+def argsort_rows(keys: np.ndarray) -> np.ndarray:
     """Lexicographic argsort of (N, W) u32 rows, UNSTABLE between
-    equal rows; parallel for W <= 4. None when native is
-    unavailable."""
+    equal rows; parallel for W <= 4."""
     lib = get_seedscan()
-    if lib is None:
-        return None
     keys = np.ascontiguousarray(keys, dtype=np.uint32)
     n, w = keys.shape
     perm = np.empty(n, np.int64)
@@ -404,13 +386,10 @@ def argsort_rows(keys: np.ndarray) -> np.ndarray | None:
 
 
 def row_search(table: np.ndarray, queries: np.ndarray
-               ) -> tuple[np.ndarray, np.ndarray] | None:
+               ) -> tuple[np.ndarray, np.ndarray]:
     """Batched lower_bound of (Q, W) query rows in the sorted (N, W)
-    table -> (idx int64, found bool); None when native is
-    unavailable."""
+    table -> (idx int64, found bool)."""
     lib = get_seedscan()
-    if lib is None:
-        return None
     table = np.ascontiguousarray(table, dtype=np.uint32)
     queries = np.ascontiguousarray(queries, dtype=np.uint32)
     assert table.ndim == 2 and queries.ndim == 2
@@ -432,12 +411,9 @@ def row_search(table: np.ndarray, queries: np.ndarray
 
 def simple_links(run_start: np.ndarray, nxt_link: np.ndarray,
                  rc: np.ndarray, valid: np.ndarray, rvc: np.ndarray,
-                 real: int) -> tuple[np.ndarray, np.ndarray] | None:
-    """Threaded simple-path links (sdbg.simple_path_links_host); None
-    when native is unavailable."""
+                 real: int) -> tuple[np.ndarray, np.ndarray]:
+    """Threaded simple-path links (sdbg.simple_path_links_host)."""
     lib = get_seedscan()
-    if lib is None:
-        return None
     e = len(run_start)
     i32 = ctypes.POINTER(ctypes.c_int32)
 
@@ -461,11 +437,8 @@ def simple_links(run_start: np.ndarray, nxt_link: np.ndarray,
 
 
 def chain_rank(nxt: np.ndarray, prv: np.ndarray, valid: np.ndarray):
-    """(chain_start, chain_end, pos, is_cycle) per edge, or None if
-    the native library is unavailable (caller uses pointer doubling)."""
+    """(chain_start, chain_end, pos, is_cycle) per edge."""
     lib = get_graphwalk()
-    if lib is None:
-        return None
     e = len(nxt)
     nxt = np.ascontiguousarray(nxt, dtype=np.int32)
     prv = np.ascontiguousarray(prv, dtype=np.int32)
@@ -484,12 +457,10 @@ def chain_rank(nxt: np.ndarray, prv: np.ndarray, valid: np.ndarray):
 
 
 def collect_chain_edges(nxt: np.ndarray, starts: np.ndarray,
-                        lens: np.ndarray) -> np.ndarray | None:
+                        lens: np.ndarray) -> np.ndarray:
     """Edge indices of the chains starting at `starts` with lengths
-    `lens` (walks nxt), or None if native is unavailable."""
+    `lens` (walks nxt)."""
     lib = get_graphwalk()
-    if lib is None:
-        return None
     nxt = np.ascontiguousarray(nxt, dtype=np.int32)
     starts = np.ascontiguousarray(starts, dtype=np.int32)
     lens = np.ascontiguousarray(lens, dtype=np.int32)

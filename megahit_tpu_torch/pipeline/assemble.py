@@ -23,6 +23,7 @@ from ..graph.output import output_contigs
 from ..graph.sdbg import Sdbg, remove_tips_sdbg
 from ..graph.unitig import build_unitig_graph
 from ..io.contig_io import ContigRecord
+from ..utils import device as devices
 from ..utils.log import get_logger
 from ..utils.timers import span
 
@@ -142,11 +143,11 @@ def assemble(sdbg: Sdbg, opt: AssembleOptions) -> AssembleResult:
 
 def _engine(sdbg: Sdbg, opt: AssembleOptions, log):
     """The unitig graph of `sdbg` in its cleaning engine: the device
-    engine for a graph on the card, else the host engine."""
+    engine for a graph on the card (utils.device.graph_on_card), else
+    the host engine."""
     g = build_unitig_graph(sdbg)
     log.info("unitig graph size: %d", g.size)
-    use_device = assemble_device.use_device_cleaning(sdbg.device) \
-        and g.size > 0
+    use_device = devices.graph_on_card(sdbg.device) and g.size > 0
     if use_device:
         # Device depth accumulates in int32; exact iff every per-chain
         # multiplicity sum < 2^31. Sufficient sound bound: the total

@@ -27,10 +27,7 @@ from ..graph.bucketed import (
 )
 from ..graph.counter import count_canonical_kmers
 from ..graph.mercy import find_mercy_edges
-from ..graph.sdbg import (
-    Sdbg, _finalize_sdbg, build_sdbg_device_resident, sdbg_from_edges,
-    use_device_build, window_edge_multiset,
-)
+from ..graph.sdbg import Sdbg, build_sdbg_union, sdbg_from_edges
 from ..io.contig_io import (
     FLAG_LOOP, FLAG_STANDALONE, ContigRecord, read_contigs, write_contigs,
 )
@@ -330,11 +327,8 @@ class Pipeline:
     def _build_sdbg_for_k(self, k: int) -> Sdbg:
         """Union the k-graph inputs (reference seq2sdbg Initialize,
         seq_to_sdbg.cpp:359-528): edge files + contigs + bubble + addi +
-        local from the previous k. On cuda the window multiset stays on
-        the card through the dedup (build_sdbg_device_resident); on the
-        CPU it is window_edge_multiset + _finalize_sdbg, the choice by
-        backend megahit_tpu makes (sdbg.use_device_build, which
-        MEGAHIT_TPU_TORCH_DEVICE_BUILD overrides)."""
+        local from the previous k: out of core above the -m budget
+        (graph/bucketed.py), else in memory (sdbg.build_sdbg_union)."""
         km = k + 1  # edge length
         dev = self.device
         prefix = self.graph_prefix(k)
@@ -405,23 +399,9 @@ class Pipeline:
                 mesh=self._mesh())
 
         if seqs:
-            if use_device_build(dev):
-                return build_sdbg_device_resident(
-                    flat, starts, seq_mults, km, edge_keys=edge_keys,
-                    edge_counts=edge_counts,
-                    batch_windows=self._batch_windows(), device=dev)
-            keys, kmults = window_edge_multiset(flat, starts, seq_mults, km,
-                                                device=dev)
-            if edge_keys is not None and len(edge_keys):
-                # union the contig-window multiset with the edge-file
-                # inputs BEFORE the single finalize (sort + join) pass
-                rc = kmerops.revcomp_kmers(
-                    np.ascontiguousarray(edge_keys, dtype=np.uint32), km)
-                keys = np.concatenate([keys, edge_keys, rc], axis=0)
-                kmults = np.concatenate(
-                    [kmults, edge_counts, edge_counts]).astype(np.int32)
-            return _finalize_sdbg(keys, kmults, km, n_windows=len(keys),
-                                  device=dev)
+            return build_sdbg_union(
+                flat, starts, seq_mults, km, edge_keys, edge_counts, dev,
+                batch_windows=self._batch_windows())
         if edge_keys is not None:
             return sdbg_from_edges(edge_keys, edge_counts, km, device=dev)
         return sdbg_from_edges(

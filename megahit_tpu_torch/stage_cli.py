@@ -127,13 +127,11 @@ def cmd_read2sdbg(args) -> int:
 
 def cmd_seq2sdbg(args) -> int:
     """Edge files and/or contig files -> SdBG. The contig windows and
-    the edges are unioned before one finalize; on a card the union
-    stays on the device (sdbg.use_device_build), as in the driver."""
-    from .core import kmerops, packing
+    the edges are unioned before one finalize (sdbg.build_sdbg_union,
+    as in the driver)."""
+    from .core import packing
     from .graph.mercy import find_mercy_edges
-    from .graph.sdbg import (_finalize_sdbg, build_sdbg_device_resident,
-                             sdbg_from_edges, use_device_build,
-                             window_edge_multiset)
+    from .graph.sdbg import build_sdbg_union, sdbg_from_edges
     from .io.contig_io import read_contigs
     from .io.lib import SequenceLib
 
@@ -172,24 +170,8 @@ def cmd_seq2sdbg(args) -> int:
     if seqs:
         flat, starts = packing.pack_many(seqs)
         seq_mults = np.floor(np.asarray(mults) + 0.5).astype(np.int32)
-        if use_device_build(dev):
-            sdbg = build_sdbg_device_resident(
-                flat, starts, seq_mults, km, edge_keys=edge_keys,
-                edge_counts=edge_counts, device=dev)
-        else:
-            keys, kmults = window_edge_multiset(flat, starts, seq_mults,
-                                                km, device=dev)
-            if edge_keys is not None and len(edge_keys):
-                # union BEFORE the single finalize pass (one sort, not
-                # two)
-                rc = kmerops.revcomp_kmers(
-                    np.ascontiguousarray(edge_keys, dtype=np.uint32), km)
-                keys = np.concatenate([keys, edge_keys, rc])
-                kmults = np.concatenate([
-                    kmults, edge_counts, edge_counts,
-                ]).astype(np.int32)
-            sdbg = _finalize_sdbg(keys, kmults, km, n_windows=len(keys),
-                                  device=dev)
+        sdbg = build_sdbg_union(flat, starts, seq_mults, km, edge_keys,
+                                edge_counts, dev)
     elif edge_keys is not None:
         sdbg = sdbg_from_edges(edge_keys, edge_counts, km, device=dev)
     else:

@@ -21,3 +21,16 @@ def resolve_device(name) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {name!r}")
     return dev
+
+
+def graph_on_card(device) -> bool:
+    """Where a graph's passes run, decided by the graph's device alone.
+
+    On a CUDA card: whole-graph torch passes (tip removal, simple-path
+    links and ranks, the contig walk), the device cleaning engine
+    (graph/assemble_device.py) and the device-resident contig-union
+    build (sdbg.build_sdbg_device_resident). On the CPU: the host
+    engine (graph/cleaning.py) over the native cores (native/), and the
+    union as window_edge_multiset + one finalize. Tests patch this one
+    name to run the card's route on CPU tensors."""
+    return torch.device(device).type == "cuda"

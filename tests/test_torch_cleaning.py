@@ -2,7 +2,8 @@
 assemble_device.py) against megahit_tpu's, on the CPU.
 
 The engine normally runs only for a graph on the card; here
-`use_device_cleaning` is patched so that it runs on CPU tensors. The
+`utils.device.graph_on_card` is patched so that the card's route runs
+on CPU tensors. The
 same seeded reads go through megahit_tpu's count and graph build; the
 port starts from that graph (megahit_tpu_torch.convert). Pass by pass,
 the port's DeviceCleaner must equal megahit_tpu's DeviceCleaner on the
@@ -35,6 +36,7 @@ from megahit_tpu_torch.graph.counter import \
     count_canonical_kmers as tcount
 from megahit_tpu_torch.graph.sdbg import sdbg_from_edges
 from megahit_tpu_torch.pipeline import assemble as tasm
+from megahit_tpu_torch.utils import device as devices
 
 from cleaning_cases import CASES, CLEAN, engine_steps, records
 
@@ -57,7 +59,7 @@ def case(request):
 @pytest.fixture
 def device_engine(monkeypatch):
     """Run the port's device engine on CPU tensors."""
-    monkeypatch.setattr(tad, "use_device_cleaning", lambda device: True)
+    monkeypatch.setattr(devices, "graph_on_card", lambda device: True)
 
 
 def _port_sdbg(j):
@@ -187,7 +189,7 @@ def test_assemble_matches(case, reference, monkeypatch, caplog):
     else:
         want, engine = _port_assemble(factory, opt, caplog)
         assert engine == "host"
-    monkeypatch.setattr(tad, "use_device_cleaning", lambda device: True)
+    monkeypatch.setattr(devices, "graph_on_card", lambda device: True)
     got, engine = _port_assemble(factory, opt, caplog)
     assert engine == "device"
     assert records(got) == records(want)
@@ -216,6 +218,6 @@ def test_depth_guard_falls_back_to_host(case, device_engine, monkeypatch,
         got = tasm.assemble(big(), tasm.AssembleOptions(**opt))
     assert "falling back to host cleaning" in caplog.text
     assert "cleaning on device" not in caplog.text
-    monkeypatch.setattr(tad, "use_device_cleaning", lambda device: False)
+    monkeypatch.setattr(devices, "graph_on_card", lambda device: False)
     want = tasm.assemble(big(), tasm.AssembleOptions(**opt))
     assert records(got) == records(want)

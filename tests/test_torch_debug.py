@@ -1,13 +1,16 @@
-"""Debug mode, the link probe and the MEGAHIT_TPU_TORCH_* overrides.
+"""Debug mode, the route rule and the MEGAHIT_TPU_TORCH_* variables.
 
 - check_sdbg_invariants passes on the port's graphs (and on
   megahit_tpu's graph of the same input, which must be the same graph)
   and catches a broken rc pairing and broken candidate tables;
 - MEGAHIT_TPU_TORCH_DEBUG=1 arms the checks and leaves the fixtures'
   final.contigs.fa byte-identical;
-- each override steers what it names: DEVICE_CLEAN, DEVICE_BUILD,
-  ROUND_CAP_ROWS, LINK_MS (above 20 ms the cleaning goes to the host
-  engine). Tolerance: exact equality."""
+- utils.device.graph_on_card sends a CPU graph to the host engine and
+  a CUDA graph to the card's route; patched to True, it runs the card's
+  route (device cleaning engine, device-resident union build) on CPU
+  tensors with the same contigs;
+- MEGAHIT_TPU_TORCH_ROUND_CAP_ROWS caps the out-of-core rounds.
+  Tolerance: exact equality."""
 
 import numpy as np
 import pytest
@@ -20,26 +23,23 @@ from megahit_tpu_torch.core import packing
 from megahit_tpu_torch.graph import assemble_device, bucketed
 from megahit_tpu_torch.graph import sdbg as sdbg_mod
 from megahit_tpu_torch.graph.counter import count_canonical_kmers
-from megahit_tpu_torch.pipeline import driver
-from megahit_tpu_torch.utils import debug, devlink
+from megahit_tpu_torch.pipeline import assemble as tasm
+from megahit_tpu_torch.utils import debug
+from megahit_tpu_torch.utils import device as devices
+from megahit_tpu_torch.utils.log import get_logger
 
 import torch_test_env  # noqa: F401
 
-CUDA = torch.device("cuda")  # a device name only: nothing runs on it
-
-ENV = ("MEGAHIT_TPU_TORCH_DEBUG", "MEGAHIT_TPU_TORCH_DEVICE_CLEAN",
-       "MEGAHIT_TPU_TORCH_DEVICE_BUILD", "MEGAHIT_TPU_TORCH_ROUND_CAP_ROWS",
-       "MEGAHIT_TPU_TORCH_LINK_MS")
+ENV = ("MEGAHIT_TPU_TORCH_DEBUG", "MEGAHIT_TPU_TORCH_ROUND_CAP_ROWS")
 
 
 @pytest.fixture(autouse=True)
 def clean_env(monkeypatch):
-    """No override leaks in from the environment or out of a test, and
+    """No variable leaks in from the environment or out of a test, and
     debug mode's finiteness checks are disarmed afterwards."""
     for name in ENV:
         monkeypatch.delenv(name, raising=False)
     monkeypatch.setattr(debug, "_finite_armed", False)
-    monkeypatch.setattr(devlink, "_cached_ms", None)
 
 
 def _graph(k=22, n=400, seed=7):
@@ -120,10 +120,10 @@ def test_debug_env_runs_pipeline(plain_run, tmp_path, monkeypatch):
 
 
 def test_device_clean_forced_on_cpu(plain_run, tmp_path, monkeypatch):
-    """DEVICE_CLEAN=1 runs the device engine on a CPU graph (with the
-    finiteness checks of debug mode on its float passes): same
-    contigs."""
-    monkeypatch.setenv("MEGAHIT_TPU_TORCH_DEVICE_CLEAN", "1")
+    """The card's route forced on a CPU graph runs the device engine on
+    CPU tensors (with the finiteness checks of debug mode on its float
+    passes): same contigs."""
+    monkeypatch.setattr(devices, "graph_on_card", lambda device: True)
     monkeypatch.setenv("MEGAHIT_TPU_TORCH_DEBUG", "1")
     before = debug.CHECKS["finite"]
     out = tmp_path / "out"
@@ -134,33 +134,34 @@ def test_device_clean_forced_on_cpu(plain_run, tmp_path, monkeypatch):
         (plain_run / "final.contigs.fa").read_bytes()
 
 
-def test_device_clean_routing(monkeypatch):
-    assert not assemble_device.use_device_cleaning("cpu")
-    assert assemble_device.use_device_cleaning(CUDA)
-    monkeypatch.setenv("MEGAHIT_TPU_TORCH_DEVICE_CLEAN", "0")
-    assert not assemble_device.use_device_cleaning(CUDA)
-    monkeypatch.setenv("MEGAHIT_TPU_TORCH_DEVICE_CLEAN", "1")
-    assert assemble_device.use_device_cleaning("cpu")
+@pytest.mark.parametrize("name, on_card", [("cpu", False),
+                                            ("cuda", True)])
+def test_route_predicate(name, on_card, monkeypatch):
+    """A CPU graph takes the host engine, a CUDA graph the card's route,
+    and every caller asks the one predicate: with it answering as for
+    `name`, assemble's engine choice follows on a CPU graph."""
+    assert devices.graph_on_card(name) is on_card
+    assert devices.graph_on_card(torch.device(name)) is on_card
+    monkeypatch.setattr(devices, "graph_on_card",
+                        lambda device: on_card)
+    g, _ = _graph()
+    eng = tasm._engine(g, tasm.AssembleOptions(), get_logger())
+    assert isinstance(eng, assemble_device.DeviceCleaner) is on_card
 
 
 def test_device_build_routing(tmp_path, monkeypatch):
-    """DEVICE_BUILD forces the contig union's route either way: the
-    driver's k=29 rung of the fixtures (reached with local assembly on)
-    takes the device-resident build on the CPU when it is 1."""
-    assert not sdbg_mod.use_device_build("cpu")
-    assert sdbg_mod.use_device_build(CUDA)
-    monkeypatch.setenv("MEGAHIT_TPU_TORCH_DEVICE_BUILD", "0")
-    assert not sdbg_mod.use_device_build(CUDA)
-    monkeypatch.setenv("MEGAHIT_TPU_TORCH_DEVICE_BUILD", "1")
-    assert sdbg_mod.use_device_build("cpu")
+    """The card's route forced on the CPU takes the contig union through
+    the device-resident build: the driver's k=29 rung of the fixtures
+    (reached with local assembly on) calls it once, on the CPU."""
+    monkeypatch.setattr(devices, "graph_on_card", lambda device: True)
     calls = []
-    real = driver.build_sdbg_device_resident
+    real = sdbg_mod.build_sdbg_device_resident
 
     def spy(*a, **kw):
         calls.append(kw["device"])
         return real(*a, **kw)
 
-    monkeypatch.setattr(driver, "build_sdbg_device_resident", spy)
+    monkeypatch.setattr(sdbg_mod, "build_sdbg_device_resident", spy)
     out = tmp_path / "out"
     assert torch_main(["--test", "--device", "cpu", "--k-list", "21,29",
                        "-o", str(out)]) == 0
@@ -178,26 +179,3 @@ def test_round_cap_rows(monkeypatch):
     # the cap never goes below 2^14 rows
     monkeypatch.setenv("MEGAHIT_TPU_TORCH_ROUND_CAP_ROWS", "1")
     assert len(bucketed.plan_rounds(counts, 1 << 20)) == 16
-
-
-def test_link_probe(monkeypatch):
-    """0.0 without a card (and cached); the override pins it; above 20
-    ms the latency-bound passes and the cleaning go to the host engine,
-    while the CPU is the host engine whatever the link."""
-    if not torch.cuda.is_available():
-        assert devlink.link_latency_ms() == 0.0
-        assert devlink._cached_ms == 0.0
-    monkeypatch.setenv("MEGAHIT_TPU_TORCH_LINK_MS", "12.5")
-    assert devlink.link_latency_ms() == 12.5
-    assert not devlink.latency_bound_link()
-    assert assemble_device.use_device_cleaning(CUDA)
-    assert not sdbg_mod.host_graph_passes(CUDA)
-    monkeypatch.setenv("MEGAHIT_TPU_TORCH_LINK_MS", "50")
-    assert devlink.latency_bound_link()
-    assert not devlink.latency_bound_link(threshold_ms=60.0)
-    assert not assemble_device.use_device_cleaning(CUDA)
-    assert sdbg_mod.host_graph_passes(CUDA)
-    assert sdbg_mod.host_graph_passes("cpu")
-    # the engine override still decides first
-    monkeypatch.setenv("MEGAHIT_TPU_TORCH_DEVICE_CLEAN", "1")
-    assert assemble_device.use_device_cleaning(CUDA)

@@ -26,6 +26,7 @@ from megahit_tpu_torch.graph import mercy as tm
 from megahit_tpu_torch.graph import output as tout
 from megahit_tpu_torch.graph import sdbg as ts
 from megahit_tpu_torch.graph import unitig as tu
+from megahit_tpu_torch.utils import device as devices
 
 import torch_test_env  # noqa: F401
 
@@ -116,7 +117,7 @@ def torch_graph_passes(monkeypatch):
     """Run the port's CUDA-side whole-graph torch passes on CPU
     tensors (the dispatch normally keeps a CPU graph on the host
     engine)."""
-    monkeypatch.setattr(ts, "host_graph_passes", lambda device: False)
+    monkeypatch.setattr(devices, "graph_on_card", lambda device: True)
 
 
 # ---------------------------------------------------------------------------

@@ -354,7 +354,9 @@ def test_device_engine_cuda_matches_cpu_tensors(cleaning_case,
     from megahit_tpu_torch.graph.cleaning import infer_min_depth
     from megahit_tpu_torch.graph.unitig import build_unitig_graph
 
-    monkeypatch.setattr(tsd, "host_graph_passes", lambda device: False)
+    from megahit_tpu_torch.utils import device as devices
+
+    monkeypatch.setattr(devices, "graph_on_card", lambda device: True)
     _, factory, _ = cleaning_case
     engines, recs = [], []
     for device in ("cpu", "cuda"):

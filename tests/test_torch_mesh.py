@@ -31,6 +31,7 @@ from megahit_tpu_torch.parallel import multihost
 from megahit_tpu_torch.parallel.multihost import Mesh
 from megahit_tpu_torch.parallel.rows import Blocks
 from megahit_tpu_torch.pipeline import assemble as tasm
+from megahit_tpu_torch.utils import device as devices
 
 from cleaning_cases import records
 from torch_test_env import assert_same_files
@@ -147,7 +148,7 @@ def _edges(reads, min_count):
 def device_engine(monkeypatch):
     """Run the port's device engine on CPU tensors, and keep every
     engine assemble() builds."""
-    monkeypatch.setattr(tad, "use_device_cleaning", lambda device: True)
+    monkeypatch.setattr(devices, "graph_on_card", lambda device: True)
     made = []
 
     class Recorded(tad.DeviceCleaner):

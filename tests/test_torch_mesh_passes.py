@@ -26,6 +26,7 @@ from megahit_tpu_torch.graph.counter import count_canonical_kmers
 from megahit_tpu_torch.graph.sdbg import remove_tips_sdbg, sdbg_from_edges
 from megahit_tpu_torch.graph.unitig import build_unitig_graph
 from megahit_tpu_torch.parallel.multihost import Mesh
+from megahit_tpu_torch.utils import device as devices
 from megahit_tpu_torch.utils.audit import SizeAudit
 
 from cleaning_cases import CASES, engine_steps, records
@@ -289,8 +290,13 @@ import logging
 from cleaning_cases import records
 from megahit_tpu_torch.graph.sdbg import sdbg_from_edges
 from megahit_tpu_torch.pipeline.assemble import AssembleOptions, assemble
+from megahit_tpu_torch.utils import device as devices
 from megahit_tpu_torch.utils.log import get_logger
 import test_torch_mesh_passes as t
+
+# the card's route on CPU tensors, so that the device cleaning engine's
+# state shards over the two ranks
+devices.graph_on_card = lambda device: True
 
 lines = []
 class Keep(logging.Handler):
@@ -325,13 +331,12 @@ def test_assemble_on_two_gloo_ranks(tmp_path, monkeypatch):
     keys, counts = jcount(flat, starts, 22, min_count)
     np.savez(tmp_path / "edges.npz", keys=np.asarray(keys),
              counts=np.asarray(counts))
-    _run_ranks(tmp_path, ASSEMBLE_WORKER, HERE,
-               MEGAHIT_TPU_TORCH_DEVICE_CLEAN="1")
+    _run_ranks(tmp_path, ASSEMBLE_WORKER, HERE)
 
     monkeypatch.setenv("MEGAHIT_TPU_DEVICE_CLEAN", "1")
     want = jasm.assemble(j_sdbg(keys, counts, 22),
                          jasm.AssembleOptions(**OPTIONS))
-    monkeypatch.setattr(tad, "use_device_cleaning", lambda device: True)
+    monkeypatch.setattr(devices, "graph_on_card", lambda device: True)
     single = tasm.assemble(sdbg_from_edges(keys, counts, 22, device="cpu"),
                            tasm.AssembleOptions(**OPTIONS))
 

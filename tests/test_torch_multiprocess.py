@@ -71,6 +71,11 @@ print("WORKER_DONE", rank, flush=True)
 
 PIPELINE_WORKER = PREAMBLE + r"""
 from megahit_tpu_torch.__main__ import main
+from megahit_tpu_torch.utils import device as devices
+# the card's route on CPU tensors, so that the device cleaning engine's
+# state shards over the two ranks (a CPU graph otherwise cleans on the
+# host engine)
+devices.graph_on_card = lambda device: True
 reads1, reads2 = sys.argv[4], sys.argv[5]
 rc = main(["-1", reads1, "-2", reads2, "-o",
            os.path.join(outdir, f"p{rank}"), "--k-list", "21,41",
@@ -201,11 +206,7 @@ def test_two_process_full_pipeline(tmp_path):
     from megahit_tpu_torch.__main__ import main as torch_main
 
     r1, r2 = _write_pairs(tmp_path)
-    # the device cleaning engine on CPU tensors, so that its state
-    # shards over the two ranks (a CPU graph otherwise cleans on the
-    # host engine)
-    _run_ranks(tmp_path, PIPELINE_WORKER, r1, r2,
-               MEGAHIT_TPU_TORCH_DEVICE_CLEAN="1")
+    _run_ranks(tmp_path, PIPELINE_WORKER, r1, r2)
     base = ["-1", r1, "-2", r2, "--k-list", "21,41", "--no-local"]
     assert torch_main(base + ["-o", str(tmp_path / "ref"),
                               "--device", "cpu"]) == 0
