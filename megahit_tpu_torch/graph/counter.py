@@ -39,21 +39,10 @@ def _pow2_pad(n: int, minimum: int = 16) -> int:
     return p
 
 
-def window_valid_mask(starts: np.ndarray, k: int, n_pos: int) -> np.ndarray:
-    """valid[p] = the k-window at flat offset p lies inside one sequence
-    (a +1/-1 range paint)."""
-    delta = np.zeros(n_pos + 1, dtype=np.int32)
-    lengths = np.diff(starts)
-    s = starts[:-1][lengths >= k]
-    e = s + (lengths[lengths >= k] - k + 1)
-    np.add.at(delta, s, 1)
-    np.add.at(delta, np.minimum(e, n_pos), -1)
-    return np.cumsum(delta[:-1], dtype=np.int32) > 0
-
-
 def window_valid_range(starts: np.ndarray, k: int, lo: int, hi: int
                        ) -> np.ndarray:
-    """window_valid_mask for positions [lo, hi) only - O(range).
+    """valid[p - lo] = the k-window at flat offset p lies inside one
+    sequence, for positions [lo, hi) only - O(range).
 
     Invalid positions are exactly the per-read tails [end - k + 1, end)
     (whole read when shorter than k), which are disjoint ascending
@@ -80,7 +69,7 @@ def window_valid_range(starts: np.ndarray, k: int, lo: int, hi: int
 
 
 def num_windows(starts: np.ndarray, k: int) -> int:
-    """Total k-windows inside sequences (== window_valid_mask.sum())."""
+    """Total k-windows inside sequences."""
     return int(np.maximum(np.diff(starts) - k + 1, 0).sum())
 
 

@@ -1,7 +1,8 @@
 """Mercy's k <= 31 node table, built with torch ops on the job's device
 (`megahit_tpu_torch.graph.mercy._node_sets`), against megahit_tpu's
-host build (`megahit_tpu.graph.mercy._node_sets_u64`): the u64 table
-and its flags equal in dtype, order and value, here on device="cpu".
+host build (`megahit_tpu.graph.mercy._node_sets_u64`): the table, taken
+to host u64, and its flags equal in dtype, order and value, here on
+device="cpu".
 The same cases on the card: tests/test_torch_mercy_table_gpu.py."""
 
 import numpy as np
@@ -12,7 +13,7 @@ from megahit_tpu_torch.core import kmerops
 from megahit_tpu_torch.graph import mercy as tm
 
 import torch_test_env  # noqa: F401
-from mercy_table_cases import CASES, K1S
+from mercy_table_cases import CASES, K1S, host_u64
 
 
 @pytest.mark.parametrize("k1", K1S)
@@ -20,7 +21,7 @@ from mercy_table_cases import CASES, K1S
 def test_node_table_matches_jax(case, k1):
     keys = CASES[case](k1, np.random.default_rng(k1))
     want_table, want_flags = jm._node_sets_u64(keys, k1)
-    table, flags = tm._node_sets(keys, k1, "cpu")
+    table, flags = host_u64(*tm._node_sets(keys, k1, "cpu"))
     assert table.dtype == want_table.dtype == np.uint64
     assert flags.dtype == want_flags.dtype == np.uint8
     np.testing.assert_array_equal(table, want_table)
