@@ -16,23 +16,44 @@ import hashlib
 import importlib.util
 import os
 from functools import cached_property
+from types import SimpleNamespace
 
 import numpy as np
 
 import judge
 from reference import first_graph as ref
+from reference import ladder
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
+def _hash_file(h, path: str) -> None:
+    """Adds a file to the digest h: an .npz array by array, any other
+    file byte for byte."""
+    if path.endswith(".npz"):
+        with np.load(path) as z:
+            for name in sorted(z.files):
+                h.update(name.encode())
+                h.update(np.ascontiguousarray(z[name]).tobytes())
+    else:
+        with open(path, "rb") as fh:
+            h.update(fh.read())
+
+
 def digest(graph_path: str, contigs_path: str) -> str:
     h = hashlib.sha256()
-    with np.load(graph_path) as z:
-        for name in sorted(z.files):
-            h.update(name.encode())
-            h.update(np.ascontiguousarray(z[name]).tobytes())
-    with open(contigs_path, "rb") as fh:
-        h.update(fh.read())
+    _hash_file(h, graph_path)
+    _hash_file(h, contigs_path)
+    return h.hexdigest()
+
+
+def rungs_digest(rungs: dict) -> str:
+    """One digest of a job's kept rung files ({K: {name: path}})."""
+    h = hashlib.sha256()
+    for k, files in rungs.items():
+        for name in sorted(files):
+            h.update(f"k{k}.{name}".encode())
+            _hash_file(h, files[name])
     return h.hexdigest()
 
 
@@ -53,13 +74,18 @@ class JobView:
     program's k_min graph: canonical keys, multiplicities), `contigs`
     (codes) and `multis` (each header's multi as printed), `reference`
     (the reference's k_min graph: keys, multiplicities, every distinct
-    read edge), `digests` of every job and `pick`, the judged one."""
+    read edge), `digests` of every job and `pick`, the judged one.
+    Of a ladder: `rungs` (the judged job's kept files, {K: {name:
+    path}}), `rung_records` (its contig files parsed, {K: {name:
+    [(header, codes)]}}) and `ladder` (the reference's rungs, worked
+    out from the reads and each previous rung's contig files)."""
 
     def __init__(self, sample, config, jobs, pick, reference=None):
         self.sample, self.config, self.jobs, self.pick = \
             sample, config, jobs, pick
         self.k1 = config["reference"]["k_min"] + 1
         self.job = jobs[pick]
+        self._rung_edges = {}
         if reference is not None:
             self.__dict__["reference"] = reference
 
@@ -86,6 +112,71 @@ class JobView:
     @cached_property
     def digests(self):
         return [digest(j["graph"], j["contigs"]) for j in self.jobs]
+
+    @cached_property
+    def rung_digests(self):
+        return [rungs_digest(j["rungs"]) for j in self.jobs]
+
+    @cached_property
+    def rungs(self) -> dict:
+        return self.job["rungs"]
+
+    @cached_property
+    def rung_records(self) -> dict:
+        return {k: {name: judge.read_contigs(path)
+                    for name, path in files.items() if name != "edges"}
+                for k, files in self.rungs.items()}
+
+    @cached_property
+    def reads(self) -> ladder.Reads:
+        return ladder.Reads(ref.codes(np.concatenate([self.sample["r1"],
+                                                      self.sample["r2"]])))
+
+    def rung_edges(self, k: int, name: str):
+        """The (k+1)-mers of rung k's contig file `name` against the
+        reference's graph of the rung (ladder.contig_edges)."""
+        key = k, name
+        if key not in self._rung_edges:
+            self._rung_edges[key] = ladder.contig_edges(
+                [c for _, c in self.rung_records[k].get(name, ())],
+                self.ladder[k].graph, k + 1)
+        return self._rung_edges[key]
+
+    @cached_property
+    def ladder(self) -> dict:
+        """{K: the reference's rung K}: `iterate` (its edges: rows,
+        counts; None at k_min), `graph` (a RowSet of its canonical
+        edges) and `mult` (their multiplicities). A rung's inputs are
+        the judged job's files of the rung before it; a rung that
+        wrote no contigs (where early termination stopped the ladder)
+        has no graph."""
+        out, prev = {}, None
+        for k, records in self.rung_records.items():
+            rung = SimpleNamespace(k1=k + 1, iterate=None, graph=None,
+                                   mult=None)
+            if prev is None:
+                keys, mult, _ = self.reference
+                rows = (keys << np.uint64(2 * (ladder.WORD - rung.k1)))
+                rung.graph, rung.mult = ladder.RowSet(rows[:, None]), mult
+            else:
+                kp, files = prev
+                rung.iterate = ladder.iterate_edges(
+                    self.reads,
+                    [(c, judge.header_flag(h))
+                     for name in ("contigs", "bubble_seq")
+                     for h, c in files.get(name, ())],
+                    kp, k - kp)
+                if "contigs" in records:
+                    keys, rung.mult = ladder.rung_graph(
+                        {name: [(c, judge.header_flag(h),
+                                 float(judge.header_multi(h)))
+                                for h, c in recs]
+                         for name, recs in files.items()},
+                        rung.iterate, kp, k)
+                    rung.graph = ladder.RowSet(keys)
+            out[k] = rung
+            prev = k, records
+        return out
 
 
 def load_check(name: str):

@@ -33,6 +33,8 @@ ROOT = os.path.dirname(HERE)
 # the warm job's genome lengths, a share of the window's: it runs every
 # stage and rung the window's jobs run, in a quarter of their time
 WARM_SCALE = 0.25
+# the contig files a rung writes (intermediate_contigs/k{K}.<name>.fa)
+RUNG_CONTIGS = ("contigs", "final.contigs", "addi", "bubble_seq", "local")
 # top-level module names that no run may hold (compared whole)
 FORBIDDEN = ("jax", "jaxlib", "flax", "megahit_tpu")
 
@@ -128,9 +130,9 @@ class SpanLog(logging.Handler):
 def run_job(argv: list[str], out: str, keep: str, span_log: SpanLog,
             device: str) -> dict:
     """One whole assembly into `out`, as `python -m megahit_tpu_torch`
-    with the same flags would run it; its k_min graph and contigs are
-    moved to `keep` and `out` deleted. Returns {"wall", "spans",
-    "graph", "contigs"}."""
+    with the same flags would run it; its k_min graph, its contigs and
+    every rung's files (`keep_rungs`) are moved to `keep` and `out`
+    deleted. Returns {"wall", "spans", "graph", "contigs", "rungs"}."""
     import torch
     from megahit_tpu_torch.__main__ import make_parser, options_from_args
     from megahit_tpu_torch.pipeline.driver import Pipeline
@@ -160,19 +162,52 @@ def run_job(argv: list[str], out: str, keep: str, span_log: SpanLog,
             if h is not span_log:
                 h.close()
     k = opt.k_min
-    tmp = os.path.join(out, "tmp", f"k{k}", f"k{k}")
-    graph = next((tmp + ext for ext in (".edges.npz", ".sdbg.npz")
-                  if os.path.exists(tmp + ext)), None)
     contigs = os.path.join(out, "final.contigs.fa")
+    os.makedirs(keep)
+    rungs = keep_rungs(out, opt.k_list, keep)
+    graph = rungs.get(k, {}).get("edges")
     if graph is None or not os.path.exists(contigs):
         raise RuntimeError(f"job wrote no k={k} graph or no contigs")
-    os.makedirs(keep)
-    kept = {"graph": os.path.join(keep, os.path.basename(graph)),
-            "contigs": os.path.join(keep, "final.contigs.fa")}
-    os.replace(graph, kept["graph"])
-    os.replace(contigs, kept["contigs"])
+    kept = os.path.join(keep, "final.contigs.fa")
+    os.replace(contigs, kept)
     shutil.rmtree(out)
-    return {"wall": wall, "spans": spans, **kept}
+    return {"wall": wall, "spans": spans, "graph": graph, "contigs": kept,
+            "rungs": rungs}
+
+
+def keep_rungs(out: str, k_list: list[int], keep: str) -> dict:
+    """Moves every rung's files of the job in `out` to `keep`: its edge
+    file (tmp/k{K}/k{K}.edges.npz, or .sdbg.npz where built out of
+    core) and its contig files (intermediate_contigs/k{K}.<name>.fa).
+    `k_list` is the ladder the job ran (options after auto_k). A rung
+    ran where it wrote contigs; the first that did not is where early
+    termination stopped the ladder, and keeps only the edges that
+    iterate wrote for it. Returns {K: {name: path}} in k order, name
+    "edges" or one of RUNG_CONTIGS."""
+    rungs = {}
+    for k in k_list:
+        files = {}
+        tmp = os.path.join(out, "tmp", f"k{k}", f"k{k}")
+        edges = next((tmp + ext for ext in (".edges.npz", ".sdbg.npz")
+                      if os.path.exists(tmp + ext)), None)
+        if edges is not None:
+            files["edges"] = edges
+        prefix = os.path.join(out, "intermediate_contigs", f"k{k}.")
+        for name in RUNG_CONTIGS:
+            if os.path.exists(prefix + name + ".fa"):
+                files[name] = prefix + name + ".fa"
+        if files:
+            rungs[k] = {name: _move(path, keep)
+                        for name, path in files.items()}
+        if "contigs" not in files:
+            break
+    return rungs
+
+
+def _move(path: str, keep: str) -> str:
+    kept = os.path.join(keep, os.path.basename(path))
+    os.replace(path, kept)
+    return kept
 
 
 def run_cell(cell: SimpleNamespace, seed: int, seconds: float, trace: bool,
@@ -216,8 +251,7 @@ def _run(cell, seed, seconds, trace, device, t_start, work):
     # builds every kernel and library and runs every stage and rung
     _, warm_argv = write("warm", WARM_SCALE)
     warm = job(warm_argv)
-    os.remove(warm["graph"])
-    os.remove(warm["contigs"])
+    shutil.rmtree(os.path.dirname(warm["contigs"]))
     sample, argv = write("sample")
     bases = 2 * sample["r1"].size
     if cuda:

@@ -38,6 +38,36 @@ def load_graph(path: str, k1: int) -> tuple[np.ndarray, np.ndarray]:
     return keys[canon], z["mult"][:n][canon].astype(np.int64)
 
 
+def words_to_rows(words: np.ndarray, k1: int) -> np.ndarray:
+    """(E, W) uint32 words, 2 bits a base, first base highest, left
+    aligned -> the reference's rows of uint64 words (two uint32 words
+    to one), for keys of any length."""
+    words = np.asarray(words, dtype=np.uint64)
+    if words.ndim != 2 or words.shape[1] != -(-k1 // 16):
+        raise ValueError(f"edge words of shape {words.shape} do not hold "
+                         f"{k1}-mers")
+    if words.shape[1] % 2:
+        words = np.concatenate(
+            [words, np.zeros((len(words), 1), np.uint64)], axis=1)
+    return (words[:, 0::2] << np.uint64(32)) | words[:, 1::2]
+
+
+def load_edges(path: str, k1: int) -> tuple[np.ndarray, np.ndarray]:
+    """A rung's edge file as the program wrote it (keys and counts) ->
+    the reference's rows and the counts."""
+    with np.load(path) as z:
+        return words_to_rows(z["keys"], k1), z["counts"].astype(np.int64)
+
+
+def header_flag(header: str) -> int:
+    """The flag of a contig header ('k21_3 flag=1 multi=8.4658
+    len=300')."""
+    for field in header.split():
+        if field.startswith("flag="):
+            return int(field[len("flag="):])
+    return 0
+
+
 def header_multi(header: str) -> str:
     """The multi of a contig header ('k21_3 flag=0 multi=8.4658
     len=300'), as printed."""
